@@ -4,12 +4,12 @@ The same frozen dataclass as :class:`bmfr_tpu.config.BMFRConfig` — same
 field names, same defaults, same derived geometry — so a JAX
 configuration carries over field by field (:func:`config_from_jax`).
 
-The port runs one configuration so far: the JAX package's flagship
-(``warp_mode="pallas"``, ``fitter_impl="pallas_direct"``,
-``solver="cholesky"``, f32 tmp storage, the default feature basis).
-:func:`check_supported` raises ``NotImplementedError`` for anything else,
-naming the ROADMAP item that will port it. ``residual_dtype`` (f32/bf16)
-and the three ``skip_*`` stage bypasses are the tolerated variants.
+The port runs every configuration the JAX package's ``validate``
+accepts, with two exceptions that :func:`check_supported` rejects with
+``NotImplementedError`` naming their ROADMAP item: a custom feature
+basis with ``fitter_impl="pallas_direct"`` (the direct fitter kernels
+evaluate the default basis in code) and ``warp_tier_impl=
+"steady_only"`` (a TPU measurement knob).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ DEFAULT_FEATURES_SCALED = (
     "world_position_y2",
     "world_position_z2",
 )
+DEFAULT_FEATURES = DEFAULT_FEATURES_NOT_SCALED + DEFAULT_FEATURES_SCALED
 
 
 @dataclass(frozen=True)
@@ -146,42 +147,28 @@ class BMFRConfig:
         return dataclasses.replace(self, **kw)
 
 
-#: What the port runs: the JAX package's flagship (bench.py's config).
+#: The JAX package's flagship (bench.py's config): fused warp, fused
+#: Cholesky fitter, bf16 TAA residual.
 FLAGSHIP = dict(warp_mode="pallas", fitter_impl="pallas_direct",
                 solver="cholesky", residual_dtype="bfloat16")
 
-# field -> (value the port runs, ROADMAP item that ports the others)
-_SLICE = {
-    "warp_mode": ("pallas", "Queue 1 #9 (gather_taps modes)"),
-    "fitter_impl": ("pallas_direct",
-                    "Queue 1 #9 and Queue 2 #4 (blockified fit_blocks)"),
-    "solver": ("cholesky", "Queue 2 #3 (Householder _qr_kernel)"),
-    "tmp_data_dtype": ("float32",
-                       "Queue 1 #9 (reduced-precision tmp storage)"),
-    "block_edge": (32, "Queue 1 #9 (block-size sweeps)"),
-    "features_not_scaled": (DEFAULT_FEATURES_NOT_SCALED,
-                            "Queue 1 #9 (custom feature bases)"),
-    "features_scaled": (DEFAULT_FEATURES_SCALED,
-                        "Queue 1 #9 (custom feature bases)"),
-}
-
 
 def check_supported(cfg: BMFRConfig) -> BMFRConfig:
-    """Validate ``cfg`` and raise ``NotImplementedError`` unless it is the
-    configuration the port runs (up to the tolerated variants)."""
+    """Validate ``cfg`` and raise ``NotImplementedError`` for the two
+    configurations the port does not run."""
     cfg.validate()
-    for field, (want, item) in _SLICE.items():
-        got = getattr(cfg, field)
-        if got != want:
-            raise NotImplementedError(
-                f"{field}={got!r} is not ported yet (the port runs "
-                f"{field}={want!r}); ROADMAP {item}")
+    if (cfg.fitter_impl == "pallas_direct"
+            and cfg.all_features != DEFAULT_FEATURES):
+        raise NotImplementedError(
+            "a custom feature basis with fitter_impl='pallas_direct' is "
+            "not ported yet (the direct fitter kernels evaluate the "
+            "default basis in code); ROADMAP Queue 2 #6")
     if cfg.warp_tier_impl == "steady_only":
         # the GPU warp has no tiers: "switch" and "steady_cond" are
         # value-identical on the TPU and both equal the exact tier here
         raise NotImplementedError(
             "warp_tier_impl='steady_only' is a TPU measurement knob with "
-            "no GPU counterpart")
+            "no GPU counterpart; ROADMAP Queue 1 #9")
     return cfg
 
 

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (``bmfr_tpu_torch/csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, at first use, into
-``bmfr_tpu_torch/_build/`` (listed in ``.gitignore``), and loaded with
-``ctypes``. The file name carries a digest of the sources, so an edited
-kernel is rebuilt. A missing ``nvcc`` or a failed build raises: there is
-no fallback.
+The sources are compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc -c``
+per source, all started together) and linked into one shared library
+with a plain C interface, at first use, into ``bmfr_tpu_torch/_build/``
+(listed in ``.gitignore``), and loaded with ``ctypes``. The file name
+carries a digest of the sources and headers, so an edited kernel is
+rebuilt. A missing ``nvcc`` or a failed build raises: there is no
+fallback.
 """
 
 from __future__ import annotations
@@ -21,9 +22,11 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("warp_blend.cu", "fitter_chol.cu")
+SOURCES = ("warp_blend.cu", "fitter_chol.cu", "householder.cu",
+           "warp_rows.cu")
+HEADERS = ("fitter_front.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry points and their argument types (pointers and the stream as
@@ -32,9 +35,15 @@ _SIGNATURES = {
     # src8, positions, normals, pfx, pfy, out, H, W, pos_lim, nrm_lim, stream
     "bmfr_warp_blend": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
     # normals, positions, accum, noise, out, weights, H, W, blocks_x,
-    # blocks_y, ox, oy, stream
-    "bmfr_fit_reconstruct_cholesky": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                      _I, _I, _I, _P),
+    # blocks_y, ox, oy, mode, stream
+    "bmfr_fit_reconstruct_cholesky": (_P,) * 6 + (_I,) * 7 + (_P,),
+    # normals, positions, accum, noise, out, weights, mins_maxs, H, W,
+    # blocks_x, blocks_y, ox, oy, mode, stream
+    "bmfr_fit_direct_householder": (_P,) * 7 + (_I,) * 7 + (_P,),
+    # tmp, noise, weights, mins_maxs, nb, B, F, lo, bp, mode, stream
+    "bmfr_fit_blocks_householder": (_P,) * 4 + (_I,) * 6 + (_P,),
+    # src, iy, ix, row0, row1, C, H, W, stream
+    "bmfr_warp_rows": (_P,) * 5 + (_I,) * 3 + (_P,),
 }
 
 _lib = None
@@ -55,7 +64,7 @@ def _nvcc():
 def library_path():
     """Where the library for the current sources lives."""
     digest = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         digest.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libbmfr_kernels_{digest.hexdigest()[:16]}.so"
 
@@ -68,20 +77,35 @@ def build(verbose=False):
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent build never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *[str(CSRC / s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    # compile and link under private names, then rename: a concurrent
+    # build never loads a half-written library
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    nvcc = _nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    objs = [work / (Path(s).stem + ".o") for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(o), str(CSRC / s)]
+            for s, o in zip(SOURCES, objs)]
+    cmds.append([nvcc, *NVCC_FLAGS, "-shared", "-o", str(work / "lib.so"),
+                 *map(str, objs)])
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds[:-1]]
+        logs = [p.communicate()[0] for p in procs]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+        link = subprocess.run(cmds[-1], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{' '.join(cmds[-1])}\n{link.stdout}"
+                               f"{link.stderr}")
+        if verbose:
+            print("".join(logs))
+        os.replace(work / "lib.so", out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

@@ -1,24 +1,40 @@
-"""Jittered, mirrored margins-grid addressing as index arithmetic.
+"""Jittered, mirrored margins-grid addressing and the block layout.
 
-Port of the addressing of :mod:`bmfr_tpu.ops.blockify`
-(``blockify.py:52-67, :93-108``): margins-grid cell ``(gy, gx)`` reads
-image pixel ``(mirror(gy - half + oy, H), mirror(gx - half + ox, W))``
-with ``(ox, oy) = BLOCK_OFFSETS[frame % 16]`` (opencl/bmfr.cl:314-316).
-JAX builds that view with a symmetric pad and a dynamic slice; torch's
-``F.pad`` has no symmetric mode, and the fitter kernel needs no padded
-copy at all, so here the view is a gather by mirrored indices.
+Port of :mod:`bmfr_tpu.ops.blockify`: margins-grid cell ``(gy, gx)``
+reads image pixel ``(mirror(gy - half + oy, H), mirror(gx - half + ox,
+W))`` with ``(ox, oy)`` the frame's block jitter (opencl/bmfr.cl:314-316),
+and block ``b = gy//be * blocks_x + gx//be`` holds element ``e = gx%be +
+(gy%be)*be`` (opencl/bmfr.cl:455-464). JAX builds the view with a
+symmetric pad and a dynamic slice; torch's ``F.pad`` has no symmetric
+mode, and the fitter kernels need no padded copy at all, so here the
+view is a gather by mirrored indices.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..features import evaluate_features
 from ..geometry import BLOCK_OFFSETS
 
+#: torch dtype of each ``tmp_data_dtype``
+STORAGE_DTYPES = {"float32": torch.float32, "float16": torch.float16,
+                  "bfloat16": torch.bfloat16}
 
-def jitter_offset(frame: int):
-    """Block jitter ``(ox, oy)`` of a frame (opencl/bmfr.cl:315)."""
-    ox, oy = BLOCK_OFFSETS[int(frame) % len(BLOCK_OFFSETS)]
+
+def storage_dtype(cfg):
+    """The torch dtype the blocks are stored in (``cfg.tmp_data_dtype``)."""
+    return STORAGE_DTYPES[cfg.tmp_data_dtype]
+
+
+def jitter_offset(frame: int, block_edge: int = 32):
+    """Block jitter ``(ox, oy)`` of a frame (opencl/bmfr.cl:315). For
+    ``block_edge != 32`` the reference's table is scaled by
+    ``block_edge / 32`` (floor), as ``blockify._scaled_offsets`` does, so
+    the jitter keeps inside the one-block margin."""
+    table = (BLOCK_OFFSETS if block_edge == 32
+             else (BLOCK_OFFSETS * block_edge) // 32)
+    ox, oy = table[int(frame) % len(table)]
     return int(ox), int(oy)
 
 
@@ -27,7 +43,7 @@ def mirror_index(index, size: int):
     ``-1 -> 0, -2 -> 1, size -> size-1``, and periodic with period
     ``2*size`` beyond one reflection — the addressing of
     ``jnp.pad(mode="symmetric")``. Equal to :func:`geometry.mirror`
-    wherever that is valid. The fitter kernel uses the same formula."""
+    wherever that is valid. The fitter kernels use the same formula."""
     m = torch.remainder(index, 2 * size)
     return torch.where(m < size, m, 2 * size - 1 - m)
 
@@ -37,10 +53,72 @@ def jittered_view(cfg, planes, frame: int):
     ``[C, mh, mw]`` (``blockify_view`` without the pad copy)."""
     H, W = planes.shape[-2:]
     half = cfg.block_edge // 2
-    ox, oy = jitter_offset(frame)
+    ox, oy = jitter_offset(frame, cfg.block_edge)
     dev = planes.device
     rows = mirror_index(torch.arange(cfg.workset_with_margins_height,
                                      device=dev) - half + oy, H)
     cols = mirror_index(torch.arange(cfg.workset_with_margins_width,
                                      device=dev) - half + ox, W)
     return planes[:, rows[:, None], cols[None, :]]
+
+
+def view_to_blocks(cfg, view):
+    """Margins-grid view ``[C, mh, mw]`` -> ``[n_blocks, C,
+    block_pixels]``."""
+    C = view.shape[0]
+    be = cfg.block_edge
+    blocks = view.reshape(C, cfg.blocks_y, be, cfg.blocks_x, be)
+    return blocks.permute(1, 3, 0, 2, 4).reshape(cfg.n_blocks, C,
+                                                 cfg.block_pixels)
+
+
+def blockify_planes(cfg, planes, frame: int):
+    """``[C, H, W]`` planes -> ``[n_blocks, C, block_pixels]`` jittered
+    blocks (``blockify.py:146-158``)."""
+    return view_to_blocks(cfg, jittered_view(cfg, planes, frame))
+
+
+def unblockify_planes(cfg, blocks, frame: int):
+    """Inverse of :func:`blockify_planes` restricted to the image window
+    (``blockify.py:161-178``): ``[n_blocks, C, block_pixels]`` ->
+    ``[C, H, W]``, where image pixel ``p`` reads margins-grid cell ``p +
+    half - offset``, the per-pixel inverse jitter of the reconstruction
+    (opencl/bmfr.cl:718-722)."""
+    C = blocks.shape[1]
+    be = cfg.block_edge
+    half = be // 2
+    view = blocks.reshape(cfg.blocks_y, cfg.blocks_x, C, be, be)
+    view = view.permute(2, 0, 3, 1, 4).reshape(
+        C, cfg.workset_with_margins_height, cfg.workset_with_margins_width)
+    ox, oy = jitter_offset(frame, be)
+    return view[:, half - oy:half - oy + cfg.image_height,
+                half - ox:half - ox + cfg.image_width].contiguous()
+
+
+def _feature_planes(cfg, normals, positions, accum_color):
+    """The K1 feature store before blocking (opencl/bmfr.cl:447-476):
+    features + accumulated colour, NaN -> 0, clamped to +-65504 under
+    f16 storage (opencl/bmfr.cl:471-473)."""
+    feats = evaluate_features(cfg.all_features, normals, positions)
+    planes = torch.cat([feats, accum_color], dim=0)
+    planes = torch.where(torch.isnan(planes), 0.0, planes)
+    if cfg.tmp_data_dtype == "float16":
+        planes = planes.clamp(-65504.0, 65504.0)
+    return planes
+
+
+def build_feature_blocks(cfg, normals, positions, accum_color, frame: int):
+    """Feature-vector build + block store of K1 (``blockify.py:181-197``):
+    ``[n_blocks, buffer_count, block_pixels]`` in the storage dtype."""
+    blocks = blockify_planes(
+        cfg, _feature_planes(cfg, normals, positions, accum_color), frame)
+    return blocks.to(storage_dtype(cfg))
+
+
+def build_feature_view(cfg, normals, positions, accum_color, frame: int):
+    """Like :func:`build_feature_blocks` but stopping at the jittered
+    image-layout view, rounded through the storage dtype and returned in
+    f32 (``blockify.py:200-213``)."""
+    view = jittered_view(
+        cfg, _feature_planes(cfg, normals, positions, accum_color), frame)
+    return view.to(storage_dtype(cfg)).float()

@@ -23,7 +23,7 @@ import torch
 
 from . import _lib
 from .gather import TAP_OFFSETS, bilinear_weights, floor_int, in_bounds
-from .warp import unpack_pairs_bf16
+from .warp import add_wrap, gather_taps, unpack_pairs_bf16
 
 #: Output planes: 0-2 K1 weighted prev-color sum, 3 K1 spp sum, 4 K1/K4
 #: total weight, 5 accept bits, 6-8 K4 weighted out sum, 9-11 K5
@@ -85,8 +85,8 @@ def mask_bits(iy, ix, H, W):
     masks, 8 the ``ix < 0`` edge."""
     bits = torch.zeros(iy.shape, dtype=torch.int32, device=iy.device)
     for i, (dx, dy) in enumerate(TAP_OFFSETS):
-        bits |= torch.where(in_bounds(iy + dy, ix + dx, H, W), 1 << i, 0
-                            ).to(torch.int32)
+        inb = in_bounds(add_wrap(iy, dy), add_wrap(ix, dx), H, W)
+        bits |= torch.where(inb, 1 << i, 0).to(torch.int32)
     # K5's tap masks (taa's border logic, opencl/bmfr.cl:929-960)
     x_lo = ix >= 0
     x_hi = ix < W - 1
@@ -99,20 +99,33 @@ def mask_bits(iy, ix, H, W):
     return bits
 
 
-def warp_blend_reference(cfg, src8, positions, normals, pfx, pfy):
-    """Plain PyTorch version of :func:`warp_blend`: unpack the state,
-    gather the four clipped taps, blend."""
+def blend_gathered_taps(cfg, taps, positions, normals, pfx, pfy):
+    """The tap branches of K1, K4 and K5 (``reproject.py:78-114``,
+    ``accumulate.py:32-55``, ``taa.py:72-97``) in one pass: the four
+    gathered taps ``f32[4, 16, H, W]`` of the 16 recurrent channels
+    (:func:`~bmfr_tpu_torch.ops.warp.gather_taps` of
+    ``TemporalState.stacked()``) -> the 13 blend planes the stages read.
+    K1 weights a tap by its screen bounds and the position/normal
+    limits and records that as the accept bits; K4 reuses those bits;
+    K5 takes its own border masks and no limit test (:func:`mask_bits`).
+    Each sum runs in the stage's own order, so the planes equal the JAX
+    tap branches' sums."""
     H, W = pfx.shape
     ix = floor_int(pfx)
     iy = floor_int(pfy)
     fx = pfx - ix.float()
     fy = pfy - iy.float()
-    stk = unpack_pairs_bf16(src8, 16)                   # [16, H, W]
-    taps = [stk[:, (iy + dy).clamp(0, H - 1), (ix + dx).clamp(0, W - 1)]
-            for dx, dy in TAP_OFFSETS]
     cur6 = torch.cat([positions, normals], dim=0)
     return blend_from_taps(cfg, *taps, cur6, mask_bits(iy, ix, H, W),
                            fx, fy)
+
+
+def warp_blend_reference(cfg, src8, positions, normals, pfx, pfy):
+    """Plain PyTorch version of :func:`warp_blend`: unpack the state,
+    gather the four clipped taps, blend."""
+    taps = gather_taps(unpack_pairs_bf16(src8, 16), floor_int(pfy),
+                       floor_int(pfx))
+    return blend_gathered_taps(cfg, taps, positions, normals, pfx, pfy)
 
 
 def warp_blend(cfg, src8, positions, normals, pfx, pfy):

@@ -1,0 +1,74 @@
+"""Stage K3 — weighted-sum reconstruction from the fitted block weights
+(port of :mod:`bmfr_tpu.ops.weighted_sum`; opencl/bmfr.cl:703-758)."""
+
+from __future__ import annotations
+
+import torch
+
+from ..features import evaluate_features
+from .blockify import blockify_planes, jitter_offset, unblockify_planes
+from .fitter import highest_precision, scale_with_mins_maxs
+
+
+def weighted_sum(cfg, weights, mins_maxs, normals, positions, noisy,
+                 frame: int, feature_blocks=None):
+    """Reconstruct the filtered image in the block layout
+    (``weighted_sum.py:27-67``). weights f32 ``[n_blocks, F, 3]``;
+    mins_maxs f32 ``[n_blocks, n_sc, 2]``; normals/positions/noisy f32
+    ``[3, H, W]`` (noisy is the ``skip_fitting`` bypass source,
+    opencl/bmfr.cl:752-754). Returns f32 ``[3, H, W]``, negatives
+    clamped to 0 (opencl/bmfr.cl:750).
+
+    ``feature_blocks``: the fit's input blocks; their unscaled feature
+    rows are the basis K3 would rebuild, so they are reused, but only
+    under f32 storage: reduced-precision tmp rounds the features, and the
+    reference's K3 reads the raw f32 buffers (``:45-49``).
+    """
+    if feature_blocks is not None and cfg.tmp_data_dtype == "float32":
+        fblocks = feature_blocks[:, :cfg.feature_count]
+    else:
+        feats = evaluate_features(cfg.all_features, normals, positions)
+        fblocks = blockify_planes(cfg, feats, frame)    # [nb, F, bp]
+
+    lo = cfg.features_not_scaled_count
+    scaled = scale_with_mins_maxs(fblocks[:, lo:], mins_maxs[..., 0:1],
+                                  mins_maxs[..., 1:2])
+    fblocks = torch.cat([fblocks[:, :lo], scaled], dim=1)
+    with highest_precision():
+        color_blocks = torch.einsum("bfe,bfc->bce", fblocks, weights)
+    color = unblockify_planes(cfg, color_blocks, frame)
+    color = torch.clamp_min(color, 0.0)
+    if cfg.skip_fitting:
+        color = noisy
+    return color
+
+
+def weighted_sum_image(cfg, weights, mins_maxs, normals, positions, noisy,
+                       frame: int):
+    """Image-space reconstruction (``weighted_sum.py:70-111``): per-pixel
+    feature evaluation + rescale + dot with the pixel's block weights,
+    the block lookup written as a block-grid upsample + inverse-jitter
+    slice (opencl/bmfr.cl:718-747)."""
+    if cfg.skip_fitting:
+        return noisy
+    H, W = cfg.image_height, cfg.image_width
+    be = cfg.block_edge
+    half = be // 2
+    F = cfg.feature_count
+    lo = cfg.features_not_scaled_count
+    nby, nbx = cfg.blocks_y, cfg.blocks_x
+    ox, oy = jitter_offset(frame, be)
+
+    def upsample(block_vals):
+        """[n_blocks, K] -> per-pixel [K, H, W] via the inverse jitter."""
+        g = block_vals.reshape(nby, nbx, -1).permute(2, 0, 1)
+        g = g.repeat_interleave(be, dim=1).repeat_interleave(be, dim=2)
+        return g[:, half - oy:half - oy + H, half - ox:half - ox + W]
+
+    feats = evaluate_features(cfg.all_features, normals, positions)
+    mm = upsample(mins_maxs.reshape(cfg.n_blocks, (F - lo) * 2))
+    scaled = scale_with_mins_maxs(feats[lo:], mm[0::2], mm[1::2])
+    basis = torch.cat([feats[:lo], scaled], dim=0)      # [F, H, W]
+    w3 = upsample(weights.reshape(cfg.n_blocks, F * 3)).reshape(F, 3, H, W)
+    color = (basis[:, None] * w3).sum(dim=0)
+    return torch.clamp_min(color, 0.0)

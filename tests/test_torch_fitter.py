@@ -109,10 +109,27 @@ def test_plain_matches_jax_cholesky_origin_path(tiny_cfg, frame):
 
 
 def test_plain_rejects_unported_fitter_variants(tiny_cfg, scene_planes):
+    """What the direct fitters still reject: a custom feature basis (the
+    kernels evaluate the default basis in code). Reduced-precision tmp
+    storage, rejected before, now runs; the block fitter rejects the
+    Cholesky solver on its kernel with a ValueError, as the JAX one
+    does."""
+    from bmfr_tpu_torch.ops.fitter import fit_blocks
+    from bmfr_tpu_torch.ops.fitter_direct import (fit_blocks_direct,
+                                                  fit_reconstruct_direct)
+
     cfg = bt.config_from_jax(tiny_cfg)
     t = torch.from_numpy(scene_planes)
-    for kw in (dict(tmp_data_dtype="float16"),
-               dict(features_scaled=("world_position_x",))):
+    custom = cfg.replace(features_scaled=("world_position_x",))
+    for fit in (fit_reconstruct_cholesky, fit_reconstruct_direct,
+                fit_blocks_direct):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fit_reconstruct_cholesky(cfg.replace(**kw), t[0:3], t[3:6],
-                                     t[6:9], 0)
+            fit(custom, t[0:3], t[3:6], t[6:9], 0)
+    for dtype in ("float16", "bfloat16"):
+        out, w = fit_reconstruct_cholesky(cfg.replace(tmp_data_dtype=dtype),
+                                          t[0:3], t[3:6], t[6:9], 0)
+        assert out.shape == t[0:3].shape and bool(torch.isfinite(out).all())
+    tmp = torch.zeros((cfg.n_blocks, cfg.buffer_count, cfg.block_pixels))
+    with pytest.raises(ValueError, match="solver"):
+        fit_blocks(cfg.replace(solver="cholesky", fitter_impl="pallas"),
+                   tmp, 0)

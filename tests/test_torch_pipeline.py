@@ -138,16 +138,20 @@ def test_state_pack_matches_jax_carry(jax_flagship, tiny_scene):
 
 
 def test_port_rejects_other_configs():
+    """The two configurations the port still rejects raise
+    NotImplementedError naming their ROADMAP item; the ones it rejected
+    before run."""
     cfg = bt.BMFRConfig(image_width=64, image_height=48, **bt.FLAGSHIP)
-    for field, value in (("solver", "householder"),
-                         ("warp_mode", "packed_x_bf16"),
-                         ("fitter_impl", "xla"),
-                         ("tmp_data_dtype", "float16"),
-                         ("warp_tier_impl", "steady_only")):
-        with pytest.raises(NotImplementedError, match="ROADMAP|TPU"):
-            bt.make_denoise_frame(cfg.replace(**{field: value}))
-    # the tolerated variants
-    for kw in (dict(residual_dtype="float32"), dict(skip_fitting=True),
+    for kw in (dict(warp_tier_impl="steady_only"),
+               dict(features_scaled=("world_position_x",))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            bt.make_denoise_frame(cfg.replace(**kw))
+    # formerly rejected, and the tolerated variants
+    for kw in (dict(solver="householder"), dict(warp_mode="packed_x_bf16"),
+               dict(fitter_impl="xla"), dict(tmp_data_dtype="float16"),
+               dict(fitter_impl="auto", block_edge=16),
+               dict(fitter_impl="xla", features_scaled=("world_position_x",)),
+               dict(residual_dtype="float32"), dict(skip_fitting=True),
                dict(skip_second_accum=True), dict(skip_taa=True)):
         bt.make_denoise_frame(cfg.replace(**kw))
     assert isinstance(bt.config_from_jax(JaxConfig()), bt.BMFRConfig)
