@@ -34,13 +34,14 @@ using namespace bmfr;
 
 constexpr int NG = 85;  // Gram triangle (55) + rhs (30) sums
 
+template <int M>
 __global__ void __launch_bounds__(THREADS)
 fit_chol_kernel(const float* __restrict__ normals,
                 const float* __restrict__ positions,
                 const float* __restrict__ accum,
                 const float* __restrict__ noise,  // [NF, BP], row 0 zero
                 float* __restrict__ out, float* __restrict__ weights, int H,
-                int W, int ox, int oy, int mode) {
+                int W, int ox, int oy) {
   __shared__ float raw[9 * BP];
   __shared__ float red[WARPS * NG];
   __shared__ float gram[NG];
@@ -52,7 +53,7 @@ fit_chol_kernel(const float* __restrict__ normals,
 
   stage_raw(raw, normals, positions, accum, H, W, ox, oy);
   __syncthreads();
-  block_scale(raw, mode, red, smin, smax, sden);
+  block_scale<M>(raw, red, smin, smax, sden);
 
   // ---- 3. Gram + rhs sums ----
   float acc[NG];
@@ -61,7 +62,7 @@ fit_chol_kernel(const float* __restrict__ normals,
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     float v[NBUF];
-    fit_values(raw, tid + THREADS * k, smin, sden, noise, mode, v);
+    fit_values<M>(raw, tid + THREADS * k, smin, sden, noise, v);
     int g = 0;
 #pragma unroll
     for (int f1 = 0; f1 < NF; ++f1) {
@@ -126,15 +127,30 @@ fit_chol_kernel(const float* __restrict__ normals,
   reconstruct(raw, smin, sden, sw, out, H, W, ox, oy);
 }
 
+template <int M>
+int launch(const float* normals, const float* positions, const float* accum,
+           const float* noise, float* out, float* weights, int H, int W,
+           int blocks_x, int blocks_y, int ox, int oy, cudaStream_t stream) {
+  const dim3 grid((unsigned)blocks_x, (unsigned)blocks_y);
+  fit_chol_kernel<M><<<grid, THREADS, 0, stream>>>(
+      normals, positions, accum, noise, out, weights, H, W, ox, oy);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// mode: the tmp dtype, 0 f32, 1 f16, 2 bf16
 extern "C" int bmfr_fit_reconstruct_cholesky(
     const float* normals, const float* positions, const float* accum,
     const float* noise, float* out, float* weights, int H, int W,
     int blocks_x, int blocks_y, int ox, int oy, int mode,
     cudaStream_t stream) {
-  const dim3 grid((unsigned)blocks_x, (unsigned)blocks_y);
-  fit_chol_kernel<<<grid, THREADS, 0, stream>>>(
-      normals, positions, accum, noise, out, weights, H, W, ox, oy, mode);
-  return (int)cudaGetLastError();
+  if (mode == kF16)
+    return launch<kF16>(normals, positions, accum, noise, out, weights, H, W,
+                        blocks_x, blocks_y, ox, oy, stream);
+  if (mode == kBF16)
+    return launch<kBF16>(normals, positions, accum, noise, out, weights, H, W,
+                         blocks_x, blocks_y, ox, oy, stream);
+  return launch<kF32>(normals, positions, accum, noise, out, weights, H, W,
+                      blocks_x, blocks_y, ox, oy, stream);
 }

@@ -46,17 +46,21 @@ constexpr int PPT = BP / THREADS;  // pixels per thread
 // tmp_data_dtype codes shared with the Python wrappers
 enum Storage { kF32 = 0, kF16 = 1, kBF16 = 2 };
 
-__device__ __forceinline__ float quantize(float v, int mode) {
-  if (mode == kF16) return __half2float(__float2half_rn(v));
-  if (mode == kBF16) return __bfloat162float(__float2bfloat16_rn(v));
+// The storage mode M is a template parameter: each tmp dtype gets its own
+// kernel, and the f32 one carries no rounding branches.
+template <int M>
+__device__ __forceinline__ float quantize(float v) {
+  if (M == kF16) return __half2float(__float2half_rn(v));
+  if (M == kBF16) return __bfloat162float(__float2bfloat16_rn(v));
   return v;
 }
 
 // the K1 store contract (opencl/bmfr.cl:455-476)
-__device__ __forceinline__ float store(float v, int mode) {
+template <int M>
+__device__ __forceinline__ float store(float v) {
   v = isnan(v) ? 0.0f : v;
-  if (mode == kF16) v = fminf(fmaxf(v, -65504.0f), 65504.0f);
-  return quantize(v, mode);
+  if (M == kF16) v = fminf(fmaxf(v, -65504.0f), 65504.0f);
+  return quantize<M>(v);
 }
 
 __device__ __forceinline__ int mirror(int i, int size) {
@@ -106,9 +110,10 @@ __device__ __forceinline__ void stage_raw(float* raw,
 // smin/smax/sden[NSC] in shared memory, the denominator rmax - rmin only
 // where |rmax - rmin| > 1. red: shared scratch of WARPS * 2 * NSC floats.
 // Call after stage_raw and a barrier; ends with a barrier.
-__device__ __forceinline__ void block_scale(const float* raw, int mode,
-                                            float* red, float* smin,
-                                            float* smax, float* sden) {
+template <int M>
+__device__ __forceinline__ void block_scale(const float* raw, float* red,
+                                            float* smin, float* smax,
+                                            float* sden) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   float mn[NSC], mx[NSC];
 #pragma unroll
@@ -121,7 +126,7 @@ __device__ __forceinline__ void block_scale(const float* raw, int mode,
     const int e = tid + THREADS * k;
 #pragma unroll
     for (int j = 0; j < NSC; ++j) {
-      const float v = store(scaled_feature(raw, e, j), mode);
+      const float v = store<M>(scaled_feature(raw, e, j));
       mn[j] = fminf(mn[j], v);
       mx[j] = fmaxf(mx[j], v);
     }
@@ -158,23 +163,24 @@ __device__ __forceinline__ void block_scale(const float* raw, int mode,
 
 // The row of pixel e in the fit: features 0:NF (stored, scaled, rounded,
 // plus noise[f * BP + e]) and the 3 stored colours.
+template <int M>
 __device__ __forceinline__ void fit_values(const float* raw, int e,
                                            const float* smin,
                                            const float* sden,
                                            const float* __restrict__ noise,
-                                           int mode, float v[NBUF]) {
+                                           float v[NBUF]) {
   v[0] = 1.0f;
 #pragma unroll
   for (int c = 0; c < 3; ++c)
-    v[1 + c] = store(raw[c * BP + e], mode) + noise[(1 + c) * BP + e];
+    v[1 + c] = store<M>(raw[c * BP + e]) + noise[(1 + c) * BP + e];
 #pragma unroll
   for (int j = 0; j < NSC; ++j) {
-    const float f = store(scaled_feature(raw, e, j), mode);
-    v[LO + j] = quantize((f - smin[j]) / sden[j], mode) +
+    const float f = store<M>(scaled_feature(raw, e, j));
+    v[LO + j] = quantize<M>((f - smin[j]) / sden[j]) +
                 noise[(LO + j) * BP + e];
   }
 #pragma unroll
-  for (int c = 0; c < 3; ++c) v[NF + c] = store(raw[(6 + c) * BP + e], mode);
+  for (int c = 0; c < 3; ++c) v[NF + c] = store<M>(raw[(6 + c) * BP + e]);
 }
 
 // max(sum_f w[ch * NF + f] * basis_f, 0) into the image (NaN kept, as

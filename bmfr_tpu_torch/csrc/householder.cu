@@ -91,7 +91,8 @@ __device__ __forceinline__ void block_reduce(float (&v)[N], int lo, int hi,
 // In-place Householder QR of data (B columns of bp values) over its first
 // F columns, with the storage rounding after each reflection. Call after
 // a barrier; ends with one.
-__device__ void householder_qr(float* data, int B, int F, int bp, int mode,
+template <int M>
+__device__ void householder_qr(float* data, int B, int F, int bp,
                                float* red) {
   const int tid = threadIdx.x;
   for (int col = 0; col < F; ++col) {
@@ -126,8 +127,7 @@ __device__ void householder_qr(float* data, int B, int F, int bp, int mode,
         if (c > col && c < B) {
           float* x = data + c * bp + e;
           // (coef * dot) * u, unfused, as the plain version evaluates it
-          *x = quantize(__fsub_rn(*x, __fmul_rn(__fmul_rn(coef, d[c]), u)),
-                        mode);
+          *x = quantize<M>(__fsub_rn(*x, __fmul_rn(__fmul_rn(coef, d[c]), u)));
         }
       }
       data[col * bp + e] = e < col ? ve : (e == col ? vec_len : 0.0f);
@@ -157,13 +157,13 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// ---- kernel D: the block fitter ----
-template <typename T>
+// ---- kernel D: the block fitter (tmp in storage type T, mode M) ----
+template <typename T, int M>
 __global__ void __launch_bounds__(THREADS)
 fit_blocks_kernel(const T* __restrict__ tmp,
                   const float* __restrict__ noise,  // [F, bp], row 0 zero
                   float* __restrict__ weights, float* __restrict__ mins_maxs,
-                  int B, int F, int lo, int bp, int mode) {
+                  int B, int F, int lo, int bp) {
   extern __shared__ float data[];  // [B][bp]
   __shared__ float red[WARPS * MAXB];
   __shared__ float sw[3 * MAXB];
@@ -209,7 +209,7 @@ fit_blocks_kernel(const T* __restrict__ tmp,
         float x = data[c * bp + e];
         if (c >= lo) {
           const float r = mx[c] - mn[c];
-          x = quantize((x - mn[c]) / (fabsf(r) > 1.0f ? r : 1.0f), mode);
+          x = quantize<M>((x - mn[c]) / (fabsf(r) > 1.0f ? r : 1.0f));
         }
         data[c * bp + e] = x + noise[c * bp + e];
       }
@@ -217,13 +217,14 @@ fit_blocks_kernel(const T* __restrict__ tmp,
   }
   __syncthreads();
 
-  householder_qr(data, B, F, bp, mode, red);
+  householder_qr<M>(data, B, F, bp, red);
   back_substitute(data, F, bp, sw);
   for (int i = tid; i < 3 * F; i += THREADS)
     weights[b * F * 3 + i] = sw[(i % 3) * F + i / 3];  // [n_blocks, F, 3]
 }
 
 // ---- kernel C: the direct fitter ----
+template <int M>
 __global__ void __launch_bounds__(THREADS)
 fit_direct_kernel(const float* __restrict__ normals,
                   const float* __restrict__ positions,
@@ -232,7 +233,7 @@ fit_direct_kernel(const float* __restrict__ normals,
                   float* __restrict__ out,          // [3, H, W] or null
                   float* __restrict__ weights,      // [n_blocks, NF, 3]
                   float* __restrict__ mins_maxs,    // [n_blocks, NSC, 2] or null
-                  int H, int W, int ox, int oy, int mode) {
+                  int H, int W, int ox, int oy) {
   extern __shared__ float dyn[];
   float* raw = dyn;            // [9][BP]
   float* data = dyn + 9 * BP;  // [NBUF][BP]
@@ -244,18 +245,18 @@ fit_direct_kernel(const float* __restrict__ normals,
 
   stage_raw(raw, normals, positions, accum, H, W, ox, oy);
   __syncthreads();
-  block_scale(raw, mode, red, smin, smax, sden);
+  block_scale<M>(raw, red, smin, smax, sden);
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     const int e = tid + THREADS * k;
     float v[NBUF];
-    fit_values(raw, e, smin, sden, noise, mode, v);
+    fit_values<M>(raw, e, smin, sden, noise, v);
 #pragma unroll
     for (int c = 0; c < NBUF; ++c) data[c * BP + e] = v[c];
   }
   __syncthreads();
 
-  householder_qr(data, NBUF, NF, BP, mode, red);
+  householder_qr<M>(data, NBUF, NF, BP, red);
   back_substitute(data, NF, BP, sw);
   if (tid < 3 * NF) weights[b * NF * 3 + tid] = sw[(tid % 3) * NF + tid / 3];
   if (mins_maxs != nullptr && tid < NSC) {
@@ -275,16 +276,32 @@ int allow_smem(K kernel, int bytes, int* granted) {
   return (int)err;
 }
 
-template <typename T>
+template <typename T, int M>
 int launch_fit_blocks(const void* tmp, const float* noise, float* weights,
                       float* mins_maxs, int nb, int B, int F, int lo, int bp,
-                      int mode, cudaStream_t stream) {
+                      cudaStream_t stream) {
   static int granted = 48 * 1024;
   const int smem = B * bp * (int)sizeof(float);
-  const int err = allow_smem(fit_blocks_kernel<T>, smem, &granted);
+  const int err = allow_smem(fit_blocks_kernel<T, M>, smem, &granted);
   if (err != 0) return err;
-  fit_blocks_kernel<T><<<(unsigned)nb, THREADS, smem, stream>>>(
-      (const T*)tmp, noise, weights, mins_maxs, B, F, lo, bp, mode);
+  fit_blocks_kernel<T, M><<<(unsigned)nb, THREADS, smem, stream>>>(
+      (const T*)tmp, noise, weights, mins_maxs, B, F, lo, bp);
+  return (int)cudaGetLastError();
+}
+
+template <int M>
+int launch_fit_direct(const float* normals, const float* positions,
+                      const float* accum, const float* noise, float* out,
+                      float* weights, float* mins_maxs, int H, int W,
+                      int blocks_x, int blocks_y, int ox, int oy,
+                      cudaStream_t stream) {
+  static int granted = 48 * 1024;
+  const int smem = (9 + NBUF) * BP * (int)sizeof(float);
+  const int err = allow_smem(fit_direct_kernel<M>, smem, &granted);
+  if (err != 0) return err;
+  const dim3 grid((unsigned)blocks_x, (unsigned)blocks_y);
+  fit_direct_kernel<M><<<grid, THREADS, smem, stream>>>(
+      normals, positions, accum, noise, out, weights, mins_maxs, H, W, ox, oy);
   return (int)cudaGetLastError();
 }
 
@@ -298,13 +315,14 @@ extern "C" int bmfr_fit_blocks_householder(const void* tmp, const float* noise,
                                            cudaStream_t stream) {
   if (B > MAXB) return (int)cudaErrorInvalidValue;
   if (mode == kF16)
-    return launch_fit_blocks<__half>(tmp, noise, weights, mins_maxs, nb, B, F,
-                                     lo, bp, mode, stream);
+    return launch_fit_blocks<__half, kF16>(tmp, noise, weights, mins_maxs, nb,
+                                           B, F, lo, bp, stream);
   if (mode == kBF16)
-    return launch_fit_blocks<__nv_bfloat16>(tmp, noise, weights, mins_maxs, nb,
-                                            B, F, lo, bp, mode, stream);
-  return launch_fit_blocks<float>(tmp, noise, weights, mins_maxs, nb, B, F, lo,
-                                  bp, mode, stream);
+    return launch_fit_blocks<__nv_bfloat16, kBF16>(tmp, noise, weights,
+                                                   mins_maxs, nb, B, F, lo, bp,
+                                                   stream);
+  return launch_fit_blocks<float, kF32>(tmp, noise, weights, mins_maxs, nb, B,
+                                        F, lo, bp, stream);
 }
 
 extern "C" int bmfr_fit_direct_householder(
@@ -312,13 +330,15 @@ extern "C" int bmfr_fit_direct_householder(
     const float* noise, float* out, float* weights, float* mins_maxs, int H,
     int W, int blocks_x, int blocks_y, int ox, int oy, int mode,
     cudaStream_t stream) {
-  static int granted = 48 * 1024;
-  const int smem = (9 + NBUF) * BP * (int)sizeof(float);
-  const int err = allow_smem(fit_direct_kernel, smem, &granted);
-  if (err != 0) return err;
-  const dim3 grid((unsigned)blocks_x, (unsigned)blocks_y);
-  fit_direct_kernel<<<grid, THREADS, smem, stream>>>(
-      normals, positions, accum, noise, out, weights, mins_maxs, H, W, ox, oy,
-      mode);
-  return (int)cudaGetLastError();
+  if (mode == kF16)
+    return launch_fit_direct<kF16>(normals, positions, accum, noise, out,
+                                   weights, mins_maxs, H, W, blocks_x,
+                                   blocks_y, ox, oy, stream);
+  if (mode == kBF16)
+    return launch_fit_direct<kBF16>(normals, positions, accum, noise, out,
+                                    weights, mins_maxs, H, W, blocks_x,
+                                    blocks_y, ox, oy, stream);
+  return launch_fit_direct<kF32>(normals, positions, accum, noise, out,
+                                 weights, mins_maxs, H, W, blocks_x, blocks_y,
+                                 ox, oy, stream);
 }
