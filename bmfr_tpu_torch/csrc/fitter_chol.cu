@@ -9,7 +9,8 @@
 //   1. stage the 9 raw planes, mirror-addressed (fitter_front.cuh);
 //   2. the block min/max of the 6 stored scaled features;
 //   3. per pixel the 13 values of the fit (K1 store contract and storage
-//      rounding in the tmp dtype, rescale, hash noise), and the 55
+//      rounding in the tmp dtype, rescale, the hash noise computed in the
+//      kernel, fitter_front.cuh), and the 55
 //      Gram-triangle + 30 rhs sums in plain f32 (CUDA-core FMAs: no TF32,
 //      no tensor cores -- the normal equations cancel catastrophically
 //      under rounded operands);
@@ -34,26 +35,84 @@ using namespace bmfr;
 
 constexpr int NG = 85;  // Gram triangle (55) + rhs (30) sums
 
+// the 9 staged raw values of view cell e
+__device__ __forceinline__ void staged_pixel(const float* raw, int e,
+                                             float px[9]) {
+#pragma unroll
+  for (int c = 0; c < 9; ++c) px[c] = raw[c * BP + e];
+}
+
 template <int M>
 __global__ void __launch_bounds__(THREADS)
 fit_chol_kernel(const float* __restrict__ normals,
                 const float* __restrict__ positions,
-                const float* __restrict__ accum,
-                const float* __restrict__ noise,  // [NF, BP], row 0 zero
-                float* __restrict__ out, float* __restrict__ weights, int H,
-                int W, int ox, int oy) {
+                const float* __restrict__ accum, float* __restrict__ out,
+                float* __restrict__ weights, int H, int W, int ox, int oy,
+                Noise nz) {
   __shared__ float raw[9 * BP];
   __shared__ float red[WARPS * NG];
   __shared__ float gram[NG];
-  __shared__ float smin[NSC], smax[NSC], sden[NSC];
+  __shared__ float smin[NSC], sden[NSC];
   __shared__ float sL[NF][NF];
   __shared__ float sw[3 * NF];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t n = (int64_t)H * W;
 
-  stage_raw(raw, normals, positions, accum, H, W, ox, oy);
+  // ---- 1. stage the raw planes, mirror-addressed ----
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int e = tid + THREADS * k;
+    const int sy = mirror((int)blockIdx.y * BE + (e >> 5) - BE / 2 + oy, H);
+    const int sx = mirror((int)blockIdx.x * BE + (e & 31) - BE / 2 + ox, W);
+    float px[9];
+    load_pixel(px, normals, positions, accum, n, (int64_t)sy * W + sx);
+#pragma unroll
+    for (int c = 0; c < 9; ++c) raw[c * BP + e] = px[c];
+  }
   __syncthreads();
-  block_scale<M>(raw, red, smin, smax, sden);
+
+  // ---- 2. block min/max of the stored scaled features ----
+  float mn[NSC], mx[NSC];
+#pragma unroll
+  for (int j = 0; j < NSC; ++j) {
+    mn[j] = INFINITY;
+    mx[j] = -INFINITY;
+  }
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    float px[9];
+    staged_pixel(raw, tid + THREADS * k, px);
+#pragma unroll
+    for (int j = 0; j < NSC; ++j) {
+      const float v = scaled_store<M>(px, j);
+      mn[j] = fminf(mn[j], v);
+      mx[j] = fmaxf(mx[j], v);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NSC; ++j) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      mn[j] = fminf(mn[j], __shfl_xor_sync(FULL, mn[j], o));
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(FULL, mx[j], o));
+    }
+    if (lane == 0) {
+      red[warp * 2 * NSC + j] = mn[j];
+      red[warp * 2 * NSC + NSC + j] = mx[j];
+    }
+  }
+  __syncthreads();
+  if (tid < NSC) {
+    float rmin = red[tid], rmax = red[NSC + tid];
+    for (int w = 1; w < WARPS; ++w) {
+      rmin = fminf(rmin, red[w * 2 * NSC + tid]);
+      rmax = fmaxf(rmax, red[w * 2 * NSC + NSC + tid]);
+    }
+    smin[tid] = rmin;
+    sden[tid] = scale_den(rmin, rmax);
+  }
+  __syncthreads();
 
   // ---- 3. Gram + rhs sums ----
   float acc[NG];
@@ -61,8 +120,10 @@ fit_chol_kernel(const float* __restrict__ normals,
   for (int g = 0; g < NG; ++g) acc[g] = 0.0f;
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    float v[NBUF];
-    fit_values<M>(raw, tid + THREADS * k, smin, sden, noise, v);
+    const int e = tid + THREADS * k;
+    float px[9], v[NBUF];
+    staged_pixel(raw, e, px);
+    fit_values<M>(px, e, smin, sden, nz, v);
     int g = 0;
 #pragma unroll
     for (int f1 = 0; f1 < NF; ++f1) {
@@ -124,33 +185,44 @@ fit_chol_kernel(const float* __restrict__ normals,
   __syncthreads();
 
   // ---- 5. reconstruction straight into the image ----
-  reconstruct(raw, smin, sden, sw, out, H, W, ox, oy);
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int e = tid + THREADS * k;
+    const int iy = (int)blockIdx.y * BE + (e >> 5) - BE / 2 + oy;
+    const int ix = (int)blockIdx.x * BE + (e & 31) - BE / 2 + ox;
+    if (iy < 0 || iy >= H || ix < 0 || ix >= W) continue;
+    float px[9];
+    staged_pixel(raw, e, px);
+    reconstruct_pixel(px, smin, sden, sw, out, n, (int64_t)iy * W + ix);
+  }
 }
 
 template <int M>
 int launch(const float* normals, const float* positions, const float* accum,
-           const float* noise, float* out, float* weights, int H, int W,
-           int blocks_x, int blocks_y, int ox, int oy, cudaStream_t stream) {
+           float* out, float* weights, int H, int W, int blocks_x,
+           int blocks_y, int ox, int oy, Noise nz, cudaStream_t stream) {
   const dim3 grid((unsigned)blocks_x, (unsigned)blocks_y);
   fit_chol_kernel<M><<<grid, THREADS, 0, stream>>>(
-      normals, positions, accum, noise, out, weights, H, W, ox, oy);
+      normals, positions, accum, out, weights, H, W, ox, oy, nz);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// mode: the tmp dtype, 0 f32, 1 f16, 2 bf16
+// mode: the tmp dtype, 0 f32, 1 f16, 2 bf16; noise_base, noise_amp: the
+// hash noise's frame term and amplitude (fitter_front.cuh)
 extern "C" int bmfr_fit_reconstruct_cholesky(
     const float* normals, const float* positions, const float* accum,
-    const float* noise, float* out, float* weights, int H, int W,
-    int blocks_x, int blocks_y, int ox, int oy, int mode,
+    float* out, float* weights, int H, int W, int blocks_x, int blocks_y,
+    int ox, int oy, int mode, unsigned noise_base, float noise_amp,
     cudaStream_t stream) {
+  const Noise nz{noise_base, noise_amp, BP};
   if (mode == kF16)
-    return launch<kF16>(normals, positions, accum, noise, out, weights, H, W,
-                        blocks_x, blocks_y, ox, oy, stream);
+    return launch<kF16>(normals, positions, accum, out, weights, H, W,
+                        blocks_x, blocks_y, ox, oy, nz, stream);
   if (mode == kBF16)
-    return launch<kBF16>(normals, positions, accum, noise, out, weights, H, W,
-                         blocks_x, blocks_y, ox, oy, stream);
-  return launch<kF32>(normals, positions, accum, noise, out, weights, H, W,
-                      blocks_x, blocks_y, ox, oy, stream);
+    return launch<kBF16>(normals, positions, accum, out, weights, H, W,
+                         blocks_x, blocks_y, ox, oy, nz, stream);
+  return launch<kF32>(normals, positions, accum, out, weights, H, W,
+                      blocks_x, blocks_y, ox, oy, nz, stream);
 }

@@ -22,26 +22,31 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("warp_blend.cu", "fitter_chol.cu", "householder.cu",
+SOURCES = ("warp_blend.cu", "fitter_chol.cu", "householder_blocks.cu",
+           "householder_blocks_smem.cu", "householder_direct.cu",
            "warp_rows.cu")
-HEADERS = ("fitter_front.cuh",)
+HEADERS = ("fitter_front.cuh", "householder.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 #: C entry points and their argument types (pointers and the stream as
 #: c_void_p, so ctypes never cuts them to 32 bits)
 _SIGNATURES = {
     # src8, positions, normals, pfx, pfy, out, H, W, pos_lim, nrm_lim, stream
     "bmfr_warp_blend": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
-    # normals, positions, accum, noise, out, weights, H, W, blocks_x,
-    # blocks_y, ox, oy, mode, stream
-    "bmfr_fit_reconstruct_cholesky": (_P,) * 6 + (_I,) * 7 + (_P,),
-    # normals, positions, accum, noise, out, weights, mins_maxs, H, W,
-    # blocks_x, blocks_y, ox, oy, mode, stream
-    "bmfr_fit_direct_householder": (_P,) * 7 + (_I,) * 7 + (_P,),
-    # tmp, noise, weights, mins_maxs, nb, B, F, lo, bp, mode, stream
-    "bmfr_fit_blocks_householder": (_P,) * 4 + (_I,) * 6 + (_P,),
+    # normals, positions, accum, out, weights, H, W, blocks_x, blocks_y,
+    # ox, oy, mode, noise_base, noise_amp, stream
+    "bmfr_fit_reconstruct_cholesky": (_P,) * 5 + (_I,) * 7 + (_U, _F, _P),
+    # normals, positions, accum, out, weights, mins_maxs, H, W, blocks_x,
+    # blocks_y, ox, oy, mode, keep_raw, noise_base, noise_amp, stream
+    "bmfr_fit_direct_householder": (_P,) * 6 + (_I,) * 8 + (_U, _F, _P),
+    # tmp, weights, mins_maxs, nb, B, lo, bp, mode, group, blocks_per_cta,
+    # smem, noise_base, noise_amp, stream
+    "bmfr_fit_blocks_registers": (_P,) * 3 + (_I,) * 8 + (_U, _F, _P),
+    # tmp, weights, mins_maxs, nb, B, lo, bp, mode, reg_columns, smem,
+    # noise_base, noise_amp, stream
+    "bmfr_fit_blocks_shared": (_P,) * 3 + (_I,) * 7 + (_U, _F, _P),
     # src, iy, ix, row0, row1, C, H, W, stream
     "bmfr_warp_rows": (_P,) * 5 + (_I,) * 3 + (_P,),
 }

@@ -5,9 +5,10 @@ their plain PyTorch versions.
 - Kernel B (``csrc/fitter_chol.cu``) replaces the TPU's ``_chol_kernel``
   (``bmfr_tpu/ops/fitter_direct.py``, entry ``fit_reconstruct_cholesky``):
   the normal equations solved by Cholesky.
-- Kernel C (``csrc/householder.cu``) replaces the TPU's ``_qr_kernel``
-  (entries ``fit_reconstruct_direct`` and ``fit_blocks_direct``): the
-  reference-exact Householder QR.
+- Kernel C (``csrc/householder_direct.cu``) replaces the TPU's
+  ``_qr_kernel`` (entries ``fit_reconstruct_direct`` and
+  ``fit_blocks_direct``): the reference-exact Householder QR, each
+  thread's pixels held in registers.
 
 Both take the same front half (``csrc/fitter_front.cuh``): gather the
 block's pixels from the mirror-addressed normals, positions and
@@ -15,7 +16,8 @@ accumulated colour (:func:`blockify.jittered_view`); build the 10
 features and 3 colours with the K1 store contract (NaN -> 0, f16 clamp,
 storage rounding); rescale the 6 scaled features by the block min/max
 (denominator ``rmax - rmin`` only where ``|rmax - rmin| > 1``) and round
-again; add the hash noise. The reconstruction ``max(sum_f w_f basis_f,
+again; add the hash noise, which the kernels compute themselves from
+:func:`~bmfr_tpu_torch.rng.noise_params`. The reconstruction ``max(sum_f w_f basis_f,
 0)`` uses the basis built from the pre-rounding, unsanitized, noise-free
 f32 features and writes the image directly, which replaces the JAX
 pipeline's inverse-jitter slice (``pipeline/denoise.py:218-225``).
@@ -31,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from ..config import DEFAULT_FEATURES
-from ..rng import feature_noise
+from ..rng import noise_params
 from . import _lib
 from .blockify import build_feature_blocks, jitter_offset
 from .fitter import fit_blocks_reference
@@ -39,6 +41,10 @@ from .fitter_pallas import MODE
 from .weighted_sum import weighted_sum_image
 
 BLOCK_EDGE = 32
+#: kernel C keeps each pixel's normals and positions in registers for the
+#: reconstruction (1) or reads them again from L2 (0); chip_smoke.py times
+#: both
+KEEP_RAW = 1
 
 
 def _check_cfg(cfg):
@@ -64,23 +70,24 @@ def _reconstruct_plain(cfg, solver, normals, positions, accum, frame):
                               frame), w
 
 
-def _launch_direct(name, cfg, normals, positions, accum, frame, *outs):
+def _launch_direct(name, cfg, normals, positions, accum, frame, *outs,
+                   extra=()):
     """Check the planes and launch direct kernel ``name`` on them, writing
-    into ``outs`` (tensors, or None for an output the kernel skips)."""
+    into ``outs`` (tensors, or None for an output the kernel skips);
+    ``extra``: the kernel's arguments after the mode."""
     _check_cfg(cfg)
     dev = normals.device
     H, W = cfg.image_height, cfg.image_width
     for t, label in ((normals, "normals"), (positions, "positions"),
                      (accum, "accum")):
         _lib.check_tensor(t, label, torch.float32, (3, H, W), dev)
-    noise = feature_noise(frame, cfg.feature_count, cfg.block_pixels,
-                          cfg.buffer_count, cfg.noise_amount, dev)
+    base, amp = noise_params(frame, cfg.block_pixels, cfg.buffer_count,
+                             cfg.noise_amount)
     ox, oy = jitter_offset(frame)
     ptr = [0 if t is None else t.data_ptr() for t in outs]
     _lib.launch(name, normals.data_ptr(), positions.data_ptr(),
-                accum.data_ptr(), noise.data_ptr(), *ptr, H, W,
-                cfg.blocks_x, cfg.blocks_y, ox, oy,
-                MODE[cfg.tmp_data_dtype])
+                accum.data_ptr(), *ptr, H, W, cfg.blocks_x, cfg.blocks_y,
+                ox, oy, MODE[cfg.tmp_data_dtype], *extra, base, amp)
 
 
 def _device(fn_name, t):
@@ -133,11 +140,13 @@ def fit_reconstruct_direct_reference(cfg, normals, positions, accum, frame):
                               accum, frame)
 
 
-def fit_reconstruct_direct(cfg, normals, positions, accum, frame):
+def fit_reconstruct_direct(cfg, normals, positions, accum, frame, *,
+                           keep_raw=None):
     """Fit every block by Householder QR and reconstruct the filtered
     image (kernel C, the JAX ``fit_reconstruct_direct`` with its
     inverse-jitter slice fused). Same arguments and outputs as
-    :func:`fit_reconstruct_cholesky`.
+    :func:`fit_reconstruct_cholesky`. ``keep_raw``: override
+    :data:`KEEP_RAW` (for timing both).
 
     On a CUDA tensor this launches the kernel; on a CPU tensor it runs
     :func:`fit_reconstruct_direct_reference`. Any other device raises.
@@ -147,8 +156,9 @@ def fit_reconstruct_direct(cfg, normals, positions, accum, frame):
         return fit_reconstruct_direct_reference(cfg, normals, positions,
                                                 accum, frame)
     out, w, _ = _outputs(cfg, dev)
+    keep = KEEP_RAW if keep_raw is None else int(keep_raw)
     _launch_direct("bmfr_fit_direct_householder", cfg, normals, positions,
-                   accum, frame, out, w, None)
+                   accum, frame, out, w, None, extra=(keep,))
     fit_reconstruct_direct.launches += 1
     return out, w
 
@@ -174,7 +184,7 @@ def fit_blocks_direct(cfg, normals, positions, accum, frame):
                                            frame)
     _, w, mm = _outputs(cfg, dev, image=False, mins_maxs=True)
     _launch_direct("bmfr_fit_direct_householder", cfg, normals, positions,
-                   accum, frame, None, w, mm)
+                   accum, frame, None, w, mm, extra=(KEEP_RAW,))
     fit_blocks_direct.launches += 1
     return w, mm
 

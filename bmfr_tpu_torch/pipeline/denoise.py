@@ -82,8 +82,9 @@ class PackedState(NamedTuple):
     src8: torch.Tensor
 
     @classmethod
-    def initial(cls, cfg, device="cpu"):
-        """An all-zero state (frame 0 never reads it)."""
+    def initial(cls, cfg, device="cuda"):
+        """An all-zero state (frame 0 never reads it), on the card unless
+        ``device`` says otherwise."""
         return cls(torch.zeros((8, cfg.image_height, cfg.image_width),
                                dtype=torch.int32, device=device))
 
@@ -185,9 +186,10 @@ def denoise_frame(cfg, state, inputs: FrameInputs, prev_cam, pixel_offset,
     return state, outputs
 
 
-def zero_state(cfg, device="cpu"):
+def zero_state(cfg, device="cuda"):
     """The all-zero state of ``cfg``'s warp: a :class:`PackedState` for
-    ``warp_mode="pallas"``, else a :class:`TemporalState`."""
+    ``warp_mode="pallas"``, else a :class:`TemporalState`; on the card
+    unless ``device`` says otherwise."""
     if cfg.warp_mode == "pallas":
         return PackedState.initial(cfg, device)
     return TemporalState.initial(cfg, device)
@@ -250,10 +252,11 @@ def denoise_sequence(cfg, inputs: FrameInputs, camera_matrices,
     return ys if len(ys) > 1 else ys[0]
 
 
-def packed_state_from_jax(cfg, src8, device="cpu"):
+def packed_state_from_jax(cfg, src8, device="cuda"):
     """The port's state from the JAX package's padded
     ``PackedState.src8`` (i32 ``[8, Hp, Wp]``, any array-like): the
-    image window ``[:, 16:16+H, 256:256+W]``."""
+    image window ``[:, 16:16+H, 256:256+W]``, on the card unless
+    ``device`` says otherwise."""
     top, left = JAX_STATE_PAD
     H, W = cfg.image_height, cfg.image_width
     win = np.asarray(src8)[:, top:top + H, left:left + W]
@@ -262,9 +265,11 @@ def packed_state_from_jax(cfg, src8, device="cpu"):
 
 
 def frame_inputs_from_numpy(normals, positions, noisy, albedo,
-                            device="cpu"):
+                            device="cuda"):
     """:class:`FrameInputs` from channels-last numpy arrays
-    (``[H, W, 3]`` or ``[T, H, W, 3]``, as the fixtures return them)."""
+    (``[H, W, 3]`` or ``[T, H, W, 3]``, as the fixtures return them), on
+    the card unless ``device`` says otherwise (without a card this raises:
+    there is no silent CPU fallback)."""
     def chw(a):
         a = np.moveaxis(np.asarray(a, np.float32), -1, -3)
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)

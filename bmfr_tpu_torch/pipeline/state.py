@@ -29,8 +29,9 @@ class TemporalState(NamedTuple):
     result: torch.Tensor     # f32[3, H, W] TAA history
 
     @classmethod
-    def initial(cls, cfg, device="cpu"):
-        """An all-zero state (frame 0 never reads it)."""
+    def initial(cls, cfg, device="cuda"):
+        """An all-zero state (frame 0 never reads it), on the card unless
+        ``device`` says otherwise."""
         H, W = cfg.image_height, cfg.image_width
         z3 = torch.zeros((3, H, W), dtype=torch.float32, device=device)
         return cls(normals=z3, positions=z3, noisy=z3,
@@ -46,9 +47,10 @@ class TemporalState(NamedTuple):
                           self.spp.float()[None], self.out, self.result])
 
 
-def temporal_state_from_jax(state, device="cpu"):
+def temporal_state_from_jax(state, device="cuda"):
     """The port's state from a JAX ``TemporalState`` (fields any
-    array-like), field by field."""
+    array-like), field by field, on the card unless ``device`` says
+    otherwise."""
     def t(a, dtype):
         return torch.tensor(np.asarray(a, dtype=dtype), device=device)
 

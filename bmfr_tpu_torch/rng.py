@@ -29,6 +29,16 @@ def hash_uniform(a):
     return a.to(torch.float32) / float(np.float32(_M32))
 
 
+def noise_params(frame_number: int, block_pixels: int, buffer_count: int,
+                 noise_amount: float):
+    """The two numbers that fix one frame's noise field: ``(base, amp)``,
+    the seed's frame term ``frame*buffer_count*block_pixels mod 2**32``
+    and the amplitude ``float32(noise_amount) * 2``. The fitter kernels
+    take these and hash the field themselves (``csrc/fitter_front.cuh``)."""
+    base = ((int(frame_number) & _M32) * (buffer_count * block_pixels)) & _M32
+    return base, float(np.float32(noise_amount) * np.float32(2.0))
+
+
 def feature_noise(frame_number: int, feature_count: int, block_pixels: int,
                   buffer_count: int, noise_amount: float, device="cpu"):
     """Noise field added to the feature columns of every block at one
@@ -37,9 +47,9 @@ def feature_noise(frame_number: int, feature_count: int, block_pixels: int,
     block_pixels`` (opencl/bmfr.cl:173-182, :625-627)."""
     e = torch.arange(block_pixels, dtype=torch.int64, device=device)[None]
     f = torch.arange(feature_count, dtype=torch.int64, device=device)[:, None]
-    frame_term = (int(frame_number) & _M32) * (buffer_count * block_pixels)
-    seed = e + f * block_pixels + (frame_term & _M32)
-    amp = float(np.float32(noise_amount) * np.float32(2.0))
+    base, amp = noise_params(frame_number, block_pixels, buffer_count,
+                             noise_amount)
+    seed = e + f * block_pixels + base
     noise = amp * (hash_uniform(seed) - 0.5)
     noise[0] = 0.0
     return noise

@@ -7,16 +7,23 @@ Run from the repository root on a machine with a CUDA card:
 It builds the five CUDA kernels from ``bmfr_tpu_torch/csrc/`` with nvcc
 and holds each against its plain PyTorch version at 1280x720 on the
 orbit scene: A (warp + blend), B (Cholesky direct fitter, f32 and f16
-tmp), C (Householder direct fitter, both entries), D (block fitter: f32,
-f16 and bf16 tmp at block_edge 32, f32 at 8 and 64) and E (row-pair
-gather, bit-equal, also at saturated coordinates). Then it drives three
+tmp), C (Householder direct fitter, both entries, with and without the
+raw values kept in registers), D (block fitter: f32, f16 and bf16 tmp at
+block_edge 32, f32 at 8, 16, 48 and 64) and E (row-pair gather,
+bit-equal, also at saturated coordinates). For each kernel it measures
+its device time per call (torch.profiler), computes its bound (the bytes
+it must move over 3.35 TB/s or its f32 operations over 67 TFLOP/s,
+whichever is larger) from this run's inputs, and times the one PyTorch
+call that computes the same function where there is one
+(``torch.linalg.lstsq`` for C and D; the port never calls it). Then it drives three
 paths through ``denoise_sequence`` over 16 frames of the 1280x720 orbit
 scene: the JAX package's flagship (kernels A and B), the default
 ``BMFRConfig()`` (the reference-exact path: kernel D) and the flagship
 with ``solver="householder"`` (kernels A and C). For each it checks the
 launch counts, agreement with the same path on the plain versions and
 that every frame is closer to the clean render than its noisy input,
-and times the steady frames with CUDA events and the profiler. Kernel E
+and times the steady frames with CUDA events and the profiler, with the
+launches per frame that the in-kernel noise saves. Kernel E
 is off every pipeline path: it is driven by ``gather_taps(mode=
 "pallas")`` over the default path's 15 warped states. The last line is
 the JSON contract ``{"ok": true, "device": {...}}``; any failed check
@@ -39,6 +46,7 @@ from bmfr_tpu_torch.io.fixtures import synthetic_sequence
 from bmfr_tpu_torch.metrics import psnr
 from bmfr_tpu_torch.ops import _lib
 from bmfr_tpu_torch.ops.blockify import STORAGE_DTYPES, build_feature_blocks
+from bmfr_tpu_torch.ops.fitter import scale_blocks, storage_roundtrip
 from bmfr_tpu_torch.ops.fitter_direct import (
     fit_blocks_direct, fit_blocks_direct_reference, fit_reconstruct_cholesky,
     fit_reconstruct_cholesky_reference, fit_reconstruct_direct,
@@ -51,6 +59,7 @@ from bmfr_tpu_torch.ops.warp import (gather_taps, pack_pairs_bf16,
                                      pack_x_pairs_bf16, warp_rows,
                                      warp_rows_reference)
 from bmfr_tpu_torch.ops.warp_blend import warp_blend, warp_blend_reference
+from bmfr_tpu_torch.rng import feature_noise
 
 WIDTH, HEIGHT, FRAMES = 1280, 720, 16
 #: kernel A: accept plane equal on this share of pixels (flips only from
@@ -71,6 +80,28 @@ MM_TOL = 1e-6
 #: each path with kernels vs with plain versions, per frame
 PATH_MIN_DB = 60.0
 SCENE_LIMITS = dict(position_limit_squared=0.03, normal_limit_squared=0.5)
+#: the H100 SXM's data-sheet peaks (on-chip-measurement guide): HBM bytes
+#: per second and f32 operations per second outside the tensor cores
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+
+
+def bound(nbytes, flops):
+    """(ms, what bounds it): the least time the card could take to move
+    ``nbytes`` and do ``flops`` f32 operations."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def qr_flops(n_blocks, bp, columns):
+    """f32 operations of the Householder reflections of n_blocks blocks:
+    per reflection col, sigma (2 per row) and for each trailing column a
+    dot (2 per row) and the update (3 per row)."""
+    F = columns - 3
+    return n_blocks * bp * sum(2 + 5 * (columns - 1 - c) for c in range(F))
 
 
 def require(cond, msg):
@@ -156,6 +187,38 @@ def kernel_device_ms(fn, kernel, calls=10):
           if e.device_type == torch.autograd.DeviceType.CUDA
           and kernel in e.name]
     return sum(us) / calls / 1e3 if us else None
+
+
+def kernels_launched(fn):
+    """Device kernels one call of ``fn`` launches (torch.profiler), or
+    None when no device event was recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def lstsq_yardstick(cfg, tmp, w_kernel, frame):
+    """Time ``torch.linalg.lstsq`` on the rescaled, noised f32 system that
+    kernel D fits (A ``[n_blocks, bp, F]``, b ``[n_blocks, bp, 3]``), the
+    one PyTorch call that computes the same least-squares weights. Returns
+    (ms per call, relative norm of its weights from the kernel's)."""
+    F = cfg.feature_count
+    data, _ = scale_blocks(cfg, tmp.float())
+    data = storage_roundtrip(cfg, data)
+    noise = feature_noise(frame, F, cfg.block_pixels, cfg.buffer_count,
+                          cfg.noise_amount, tmp.device)
+    A = (data[:, :F] + noise[None]).transpose(1, 2).contiguous()
+    b = data[:, F:].transpose(1, 2).contiguous()
+    sol = torch.linalg.lstsq(A, b).solution
+    rel = float((sol - w_kernel).norm() / w_kernel.norm())
+    return cuda_ms(lambda: torch.linalg.lstsq(A, b), 10), rel
 
 
 def tone_map(a):
@@ -404,6 +467,15 @@ def main():
         cfg, state.src8, cur.positions, cur.normals, pfx, pfy), 50),
         cuda_ms(lambda: warp_blend_reference(
             cfg, state.src8, cur.positions, cur.normals, pfx, pfy), 10))
+    dev_ms, bounds = {}, {}
+    dev_ms["A"] = kernel_device_ms(lambda: warp_blend(
+        cfg, state.src8, cur.positions, cur.normals, pfx, pfy),
+        "warp_blend_kernel")
+    # in: the 8 state words, positions, normals, pfx, pfy; out: 13 planes;
+    # ~200 operations per pixel (4 taps x 16 channels, the tests)
+    bounds["A"] = bound(nbytes(state.src8, cur.positions, cur.normals, pfx,
+                               pfy) + 13 * 4 * HEIGHT * WIDTH,
+                        200 * HEIGHT * WIDTH)
 
     # ---- kernel B vs plain (two jitter offsets; f32 and f16 tmp) ----
     errs["B"] = 0.0
@@ -418,6 +490,16 @@ def main():
         cfg, c5.normals, c5.positions, c5.noisy, 5), 50),
         cuda_ms(lambda: fit_reconstruct_cholesky_reference(
             cfg, c5.normals, c5.positions, c5.noisy, 5), 5))
+    dev_ms["B"] = kernel_device_ms(lambda: fit_reconstruct_cholesky(
+        cfg, c5.normals, c5.positions, c5.noisy, 5), "fit_chol_kernel")
+    # in: 9 raw planes; out: the image and the weights. Per view cell ~30
+    # operations of features and 170 of the 85 Gram and rhs sums, per
+    # image pixel 60 of the reconstruction
+    planes_bytes = nbytes(c5.normals, c5.positions, c5.noisy)
+    cells = flagship.n_blocks * flagship.block_pixels
+    direct_out = 3 * 4 * HEIGHT * WIDTH + flagship.n_blocks * 30 * 4
+    bounds["B"] = bound(planes_bytes + direct_out,
+                        200 * cells + 60 * HEIGHT * WIDTH)
 
     # ---- kernel C vs plain: both entries, frames 0, 5, 13 ----
     errs["C"] = 0.0
@@ -439,11 +521,29 @@ def main():
         hh_flagship, c5.normals, c5.positions, c5.noisy, 5), 50),
         cuda_ms(lambda: fit_blocks_direct_reference(
             hh_flagship, c5.normals, c5.positions, c5.noisy, 5), 5))
+    for keep in (0, 1):
+        dev_ms[f"C keep_raw {keep}"] = kernel_device_ms(
+            lambda: fit_reconstruct_direct(hh_flagship, c5.normals,
+                                           c5.positions, c5.noisy, 5,
+                                           keep_raw=keep), "fit_direct_kernel")
+    dev_ms["C"] = kernel_device_ms(lambda: fit_reconstruct_direct(
+        hh_flagship, c5.normals, c5.positions, c5.noisy, 5),
+        "fit_direct_kernel")
+    dev_ms["C blocks"] = kernel_device_ms(lambda: fit_blocks_direct(
+        hh_flagship, c5.normals, c5.positions, c5.noisy, 5),
+        "fit_direct_kernel")
+    # as B, with the reflections in place of the Gram sums (~40 per view
+    # cell of features, rescale and noise)
+    bounds["C"] = bound(planes_bytes + direct_out,
+                        qr_flops(flagship.n_blocks, flagship.block_pixels,
+                                 flagship.buffer_count) + 40 * cells
+                        + 60 * HEIGHT * WIDTH)
 
     # ---- kernel D vs plain: the orbit frame's feature blocks ----
-    errs["D"], dev_ms = 0.0, {}
+    errs["D"] = 0.0
     for dtype, be in (("float32", 32), ("float16", 32), ("bfloat16", 32),
-                      ("float32", 8), ("float32", 64)):
+                      ("float32", 8), ("float32", 16), ("float32", 48),
+                      ("float32", 64)):
         dcfg = exact.replace(tmp_data_dtype=dtype, block_edge=be)
         tmp = build_feature_blocks(dcfg, c5.normals, c5.positions, c5.noisy,
                                    5)
@@ -454,11 +554,19 @@ def main():
             "fit_blocks_pallas", f"{dtype} block_edge {be}, "
             f"{dcfg.n_blocks} blocks", w, mm, wr, mmr, dtype))
         dev_ms[f"D {dtype} block_edge {be}"] = kernel_device_ms(
-            lambda: fit_blocks_pallas(dcfg, tmp, 5), "fit_blocks_kernel")
+            lambda: fit_blocks_pallas(dcfg, tmp, 5), "fit_blocks")
         if (dtype, be) == ("float32", 32):
             ms["D"] = (cuda_ms(lambda: fit_blocks_pallas(dcfg, tmp, 5), 50),
                        cuda_ms(lambda: fit_blocks_pallas_reference(
                            dcfg, tmp, 5), 5))
+            dev_ms["D"] = dev_ms[f"D {dtype} block_edge {be}"]
+            # in: the blocks; out: weights and mins/maxs; the reflections
+            # and ~10 operations per value of the rescale and noise
+            bounds["D"] = bound(nbytes(tmp, w, mm),
+                                qr_flops(dcfg.n_blocks, dcfg.block_pixels,
+                                         dcfg.buffer_count)
+                                + 10 * tmp.numel())
+            library_ms, lib_rel = lstsq_yardstick(dcfg, tmp, w, 5)
 
     # ---- kernel E vs the two clipped gathers ----
     src = pack_x_pairs_bf16(torch.from_numpy(rnd).to(dev))
@@ -476,6 +584,17 @@ def main():
                cuda_ms(lambda: warp_rows_reference(src, iy, ix), 10))
     dev_ms["E"] = kernel_device_ms(lambda: warp_rows(src, iy, ix),
                                    "warp_rows_kernel")
+    row0, row1 = warp_rows(src, iy, ix)
+    bounds["E"] = bound(nbytes(src, iy, ix, row0, row1), 0)
+    del row0, row1
+    print(f"[library] torch.linalg.lstsq on kernel D's f32 system "
+          f"(block_edge 32, frame 5): {library_ms:.4f} ms per call, "
+          f"weights' relative norm from kernel D {lib_rel:.3e}")
+    for k, (b_ms, by) in bounds.items():
+        print(f"[bound] kernel {k}: {b_ms:.4f} ms ({by}); device "
+              + ("not measured" if dev_ms[k] is None
+                 else f"{dev_ms[k]:.4f} ms, {100 * b_ms / dev_ms[k]:.1f}% "
+                 "of the bound"))
     for k, (m, p) in ms.items():
         print(f"[time] kernel {k}: wrapper {m:.4f} ms, plain {p:.4f} ms")
     for k, m in dev_ms.items():
@@ -498,6 +617,19 @@ def main():
         {"warp_blend": warp_blend,
          "fit_reconstruct_direct": fit_reconstruct_direct},
         {"warp_blend": FRAMES - 1, "fit_reconstruct_direct": FRAMES})
+
+    # launches per frame that the in-kernel hash saves: one torch noise
+    # field per fitter launch before (B, D and C each made one per call)
+    cfg0 = exact
+    saved = kernels_launched(lambda: feature_noise(
+        5, cfg0.feature_count, cfg0.block_pixels, cfg0.buffer_count,
+        cfg0.noise_amount, dev))
+    for label, rec in paths.items():
+        after = (rec["profile"] or {}).get("kernels_per_frame")
+        rec["noise_kernels_saved_per_frame"] = saved
+        print(f"[launches] {label}: {after} device kernels per steady frame "
+              f"with the noise hashed in the kernel; the torch noise field "
+              f"took {saved} more per frame")
 
     # ---- kernel E's path: gather_taps(mode="pallas") over the default
     # path's warped states (no pipeline configuration reaches kernel E) ----
@@ -522,34 +654,42 @@ def main():
     require(e_launches == FRAMES - 1 and same, "kernel E's tap path")
     del taps, taps_in
 
+    no_library = {
+        "A": "none: no single call computes the clipped 4-tap blend of the "
+             "packed state",
+        "B": "none: no single call computes the Gram sums, the Cholesky "
+             "solve and the reconstruction",
+        "E": "none: no single call computes the two clipped row loads"}
+
+    def entry(key, name, source, replaces, launches):
+        b_ms, by = bounds[key]
+        lib = library_ms if key in ("C", "D") else None
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=launches, max_abs_err=errs[key], ms=ms[key][0],
+                    plain_ms=ms[key][1], bound_ms=b_ms, bound_by=by,
+                    library_ms=lib, device_ms=dev_ms[key],
+                    library=("torch.linalg.lstsq" if lib is not None
+                             else no_library[key]))
+
     kernels = [
-        dict(name="warp_blend", route="cuda",
-             source="bmfr_tpu_torch/csrc/warp_blend.cu",
-             replaces="bmfr_tpu/ops/warp_pallas.py:745",
-             launches=paths["flagship"]["launches"]["warp_blend"],
-             max_abs_err=errs["A"], ms=ms["A"][0], plain_ms=ms["A"][1]),
-        dict(name="fit_reconstruct_cholesky", route="cuda",
-             source="bmfr_tpu_torch/csrc/fitter_chol.cu",
-             replaces="bmfr_tpu/ops/fitter_direct.py:512",
-             launches=paths["flagship"]["launches"][
-                 "fit_reconstruct_cholesky"],
-             max_abs_err=errs["B"], ms=ms["B"][0], plain_ms=ms["B"][1]),
-        dict(name="fit_reconstruct_direct", route="cuda",
-             source="bmfr_tpu_torch/csrc/householder.cu",
-             replaces="bmfr_tpu/ops/fitter_direct.py:255",
-             launches=paths["householder_flagship"]["launches"][
-                 "fit_reconstruct_direct"],
-             max_abs_err=errs["C"], ms=ms["C"][0], plain_ms=ms["C"][1]),
-        dict(name="fit_blocks_pallas", route="cuda",
-             source="bmfr_tpu_torch/csrc/householder.cu",
-             replaces="bmfr_tpu/ops/fitter_pallas.py:92",
-             launches=paths["default"]["launches"]["fit_blocks_pallas"],
-             max_abs_err=errs["D"], ms=ms["D"][0], plain_ms=ms["D"][1]),
-        dict(name="warp_rows", route="cuda",
-             source="bmfr_tpu_torch/csrc/warp_rows.cu",
-             replaces="bmfr_tpu/ops/warp_pallas.py:276",
-             launches=e_launches, max_abs_err=errs["E"], ms=ms["E"][0],
-             plain_ms=ms["E"][1]),
+        entry("A", "warp_blend", "bmfr_tpu_torch/csrc/warp_blend.cu",
+              "bmfr_tpu/ops/warp_pallas.py:745",
+              paths["flagship"]["launches"]["warp_blend"]),
+        entry("B", "fit_reconstruct_cholesky",
+              "bmfr_tpu_torch/csrc/fitter_chol.cu",
+              "bmfr_tpu/ops/fitter_direct.py:512",
+              paths["flagship"]["launches"]["fit_reconstruct_cholesky"]),
+        entry("C", "fit_reconstruct_direct",
+              "bmfr_tpu_torch/csrc/householder_direct.cu",
+              "bmfr_tpu/ops/fitter_direct.py:255",
+              paths["householder_flagship"]["launches"][
+                  "fit_reconstruct_direct"]),
+        entry("D", "fit_blocks_pallas",
+              "bmfr_tpu_torch/csrc/householder_blocks.cu",
+              "bmfr_tpu/ops/fitter_pallas.py:92",
+              paths["default"]["launches"]["fit_blocks_pallas"]),
+        entry("E", "warp_rows", "bmfr_tpu_torch/csrc/warp_rows.cu",
+              "bmfr_tpu/ops/warp_pallas.py:276", e_launches),
     ]
     print(json.dumps({"paths": paths, "build_s": build_s,
                       "kernel_device_ms": dev_ms,

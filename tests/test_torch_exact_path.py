@@ -45,7 +45,7 @@ def jax_frame(sc, t):
 
 def torch_inputs(sc):
     return bt.frame_inputs_from_numpy(sc["normals"], sc["positions"],
-                                      sc["noisy"], sc["albedo"])
+                                      sc["noisy"], sc["albedo"], "cpu")
 
 
 def run_jax_frames(cfg, sc):
@@ -68,7 +68,7 @@ def run_jax_frames(cfg, sc):
 
 def run_port_frames(cfg, sc, state=None, start=0):
     inputs = torch_inputs(sc)
-    state = bt.zero_state(cfg) if state is None else state
+    state = bt.zero_state(cfg, "cpu") if state is None else state
     frames = []
     for t in range(start, sc["noisy"].shape[0]):
         state, outs = bt.denoise_frame(
@@ -129,7 +129,7 @@ def test_temporal_state_handover_from_jax(jax_default, tiny_scene):
     runs frame 2."""
     jcfg, frames, state1 = jax_default
     cfg = bt.config_from_jax(jcfg)
-    state = bt.temporal_state_from_jax(state1)
+    state = bt.temporal_state_from_jax(state1, "cpu")
     assert state.spp.dtype == torch.uint8 and state.noisy.shape == (3, 48, 64)
     got = run_port_frames(cfg, tiny_scene, state=state, start=2)[0]
     db = psnr(got["result"], frames[2]["result"])

@@ -146,20 +146,27 @@ def test_slice_kernels_match_plain(cuda):
         assert psnr(got[t], want[t]) >= 70.0
 
 
-@pytest.mark.parametrize("block_edge", [8, 32, 64])
+def random_blocks(cfg, dev, dtype):
+    """tests/test_fitter_pallas.py's random blocks, in the storage dtype."""
+    r = np.random.RandomState(3)
+    data = r.rand(cfg.n_blocks, cfg.buffer_count,
+                  cfg.block_pixels).astype(np.float32)
+    lo, F = cfg.features_not_scaled_count, cfg.feature_count
+    data[:, lo:F, :] = data[:, lo:F, :] * 7.0 - 2.0
+    return torch.from_numpy(data).to(dev, STORAGE_DTYPES[dtype])
+
+
+@pytest.mark.parametrize("block_edge", [8, 16, 24, 32, 48, 64])
 @pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
 def test_block_fitter_kernel_matches_plain(cuda, dtype, block_edge):
-    """Kernel D on tests/test_fitter_pallas.py's random blocks; weights to
-    the JAX tests' tolerances (2e-3 f32, 5e-3 f16/bf16)."""
+    """Kernel D on tests/test_fitter_pallas.py's random blocks, both
+    routes (registers up to block_edge 32, shared memory above); weights
+    to the JAX tests' tolerances (2e-3 f32, 5e-3 f16/bf16)."""
     cfg = scene_cfg(120, 200).replace(fitter_impl="auto",
                                       solver="householder",
                                       tmp_data_dtype=dtype,
                                       block_edge=block_edge)
-    r = np.random.RandomState(3)
-    data = r.rand(cfg.n_blocks, cfg.buffer_count,
-                  cfg.block_pixels).astype(np.float32)
-    data[:, 4:10, :] = data[:, 4:10, :] * 7.0 - 2.0
-    tmp = torch.from_numpy(data).to(cuda, STORAGE_DTYPES[dtype])
+    tmp = random_blocks(cfg, cuda, dtype)
     n0 = fit_blocks_pallas.launches
     w, mm = fit_blocks_pallas(cfg, tmp, 5)
     assert fit_blocks_pallas.launches == n0 + 1
@@ -168,6 +175,61 @@ def test_block_fitter_kernel_matches_plain(cuda, dtype, block_edge):
     tol = 2e-3 if dtype == "float32" else 5e-3
     torch.testing.assert_close(mm, mm_ref, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(w, w_ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("block_edge", [16, 64])
+@pytest.mark.parametrize("basis", [
+    dict(features_not_scaled=("const",), features_scaled=()),
+    dict(features_scaled=("world_position_x",)),
+    dict(features_not_scaled=("const", "normal_x", "normal_x", "normal_y",
+                              "normal_y", "normal_z", "normal_z")),
+], ids=["4-columns", "8-columns", "16-columns"])
+def test_block_fitter_kernel_custom_basis(cuda, basis, block_edge):
+    """Kernel D on custom bases of 4, 8 and 16 columns (16, the most it
+    takes, keeps two colour columns in registers at block_edge 64). The
+    16-column basis repeats features, so noise_amount 0.5 conditions it."""
+    cfg = scene_cfg(120, 200).replace(fitter_impl="auto",
+                                      solver="householder", noise_amount=0.5,
+                                      block_edge=block_edge, **basis)
+    tmp = random_blocks(cfg, cuda, "float32")
+    w, mm = fit_blocks_pallas(cfg, tmp, 7)
+    w_ref, mm_ref = fit_blocks_pallas_reference(cfg, tmp, 7)
+    torch.cuda.synchronize()
+    assert w.shape == (cfg.n_blocks, cfg.feature_count, 3)
+    torch.testing.assert_close(mm, mm_ref, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(w, w_ref, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("frame", [3, 400000])
+@pytest.mark.parametrize("kernel", ["B", "C", "D"])
+def test_kernels_hash_the_noise_as_feature_noise(cuda, kernel, frame):
+    """The noise each kernel hashes for itself is feature_noise's, which
+    the plain versions add: at noise_amount 0.5 the noise dominates the
+    fit, so a wrong hash moves the output far past the tolerance; frame
+    400000 is past the seed's 2**32 / (13 * 1024) wrap."""
+    H, W = 48, 160
+    cfg = scene_cfg(H, W).replace(noise_amount=0.5)
+    if kernel == "D":
+        cfg = cfg.replace(fitter_impl="auto", solver="householder")
+        got, _ = fit_blocks_pallas(cfg, random_blocks(cfg, cuda, "float32"),
+                                   frame)
+        want, _ = fit_blocks_pallas_reference(
+            cfg, random_blocks(cfg, cuda, "float32"), frame)
+        tol = 2e-3
+    else:
+        inputs, _, _ = scene(H, W, cuda, frames=1)
+        planes = (inputs.normals[0], inputs.positions[0], inputs.noisy[0])
+        if kernel == "B":
+            fit, plain = (fit_reconstruct_cholesky,
+                          fit_reconstruct_cholesky_reference)
+        else:
+            cfg = cfg.replace(solver="householder")
+            fit, plain = (fitter_direct.fit_reconstruct_direct,
+                          fitter_direct.fit_reconstruct_direct_reference)
+        got, want = fit(cfg, *planes, frame)[0], plain(cfg, *planes, frame)[0]
+        tol = 5e-3
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("H,W", SHAPES[:2])

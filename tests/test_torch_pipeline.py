@@ -45,7 +45,7 @@ def jax_inputs(sc, t=None):
 
 def torch_inputs(sc):
     return bt.frame_inputs_from_numpy(sc["normals"], sc["positions"],
-                                      sc["noisy"], sc["albedo"])
+                                      sc["noisy"], sc["albedo"], "cpu")
 
 
 @pytest.fixture(scope="module")
@@ -101,9 +101,10 @@ def test_state_handover_from_jax(jax_flagship, tiny_scene):
     continue for frame 2."""
     cfg = bt.config_from_jax(jax_flagship["cfg"])
     sc = tiny_scene
-    state = bt.packed_state_from_jax(cfg, jax_flagship["state1"])
+    state = bt.packed_state_from_jax(cfg, jax_flagship["state1"], "cpu")
     inputs = bt.frame_inputs_from_numpy(
-        sc["normals"][2], sc["positions"][2], sc["noisy"][2], sc["albedo"][2])
+        sc["normals"][2], sc["positions"][2], sc["noisy"][2], sc["albedo"][2],
+        "cpu")
     _, got = bt.make_denoise_frame(cfg)(
         state, inputs, torch.from_numpy(sc["camera_matrices"][1]),
         torch.from_numpy(sc["pixel_offsets"][2]), 2)
@@ -119,14 +120,14 @@ def test_state_pack_matches_jax_carry(jax_flagship, tiny_scene):
     up to bf16 words whose f32 source differed by summation order."""
     cfg = bt.config_from_jax(jax_flagship["cfg"])
     sc = tiny_scene
-    state = bt.PackedState.initial(cfg)
+    state = bt.PackedState.initial(cfg, "cpu")
     inputs = torch_inputs(sc)
     step = bt.make_denoise_frame(cfg)
     for t in range(2):
         state, _ = step(state, bt.FrameInputs(*(x[t] for x in inputs)),
                         torch.from_numpy(sc["camera_matrices"][max(t - 1, 0)]),
                         torch.from_numpy(sc["pixel_offsets"][t]), t)
-    want = bt.packed_state_from_jax(cfg, jax_flagship["state1"]).src8
+    want = bt.packed_state_from_jax(cfg, jax_flagship["state1"], "cpu").src8
     # words 0:3 (positions, normals) are copies of the inputs: bit-equal
     np.testing.assert_array_equal(state.src8[0:3].numpy(),
                                   want[0:3].numpy())
