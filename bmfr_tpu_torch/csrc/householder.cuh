@@ -112,13 +112,14 @@ __device__ __forceinline__ float reflect_value(float x, float k, float u) {
 // reflection's buffer), and after the one barrier lane c sums value c over
 // the group's warps, in warp order, and hands it out by shuffles. sync:
 // the caller's shared writes before the barrier (the pivot row).
-template <int N, class Sync>
+template <int N, bool HALF, class Sync>
 __device__ __forceinline__ void group_sum(float (&v)[N], const Group& g,
                                           float* red_buf, int stride,
                                           Sync&& sync) {
   static_assert(N <= 16, "group_sum carries at most 16 values");
-  if (g.G <= 32) {
-    for (int o = g.G >> 1; o > 0; o >>= 1) {
+  if constexpr (HALF) {
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) {
 #pragma unroll
       for (int c = 0; c < N; ++c) v[c] += __shfl_xor_sync(FULL, v[c], o);
     }
@@ -160,7 +161,8 @@ __device__ __forceinline__ float pick(const float (&x)[4], int r) {
 }
 
 // ---- the register-resident QR: a thread holds rows 4 gt .. 4 gt + 3 of
-// the block in x[slot][row]; rows past the block are zero. Before
+// the block in x[slot][row]; rows past the block are zero. HALF: the
+// group is half a warp (16 threads), else whole warps. Before
 // reflection col, slot j holds column col + j (zeros past the last
 // column): the pivot is always slot 0, so the reflections run as a loop
 // while every register index stays static, and the columns shift down one
@@ -168,7 +170,7 @@ __device__ __forceinline__ float pick(const float (&x)[4], int r) {
 // its owner writes it to rs[c * 16 + col] (columns col.., vec_len on the
 // diagonal) for the back substitution. Scratch: red [2][warps][2 NB],
 // rows [2][groups][NB] (groups of > 32 threads only). ----
-template <int M, int NB>
+template <int M, int NB, bool HALF>
 __device__ __forceinline__ void qr_registers(float (&x)[NB][4],
                                              const Group& g, float* red,
                                              float* rows, float* rs,
@@ -178,7 +180,7 @@ __device__ __forceinline__ void qr_registers(float (&x)[NB][4],
 #pragma unroll 1
   for (int col = 0; col < F; ++col) {
     const int owner = col >> 2, slot = col & 3, buf = col & 1;
-    float s[NB], pr[NB];
+    float s[NB];
 #pragma unroll
     for (int j = 0; j < NB; ++j) s[j] = 0.0f;
 #pragma unroll
@@ -188,32 +190,35 @@ __device__ __forceinline__ void qr_registers(float (&x)[NB][4],
 #pragma unroll
       for (int j = 1; j < NB; ++j) s[j] += v * x[j][r];
     }
+    // the pivot row: shuffled from its owner in a half warp, else read
+    // from shared memory where it is used (fewer live registers)
     float* wb = rows + (buf * groups + g.grp) * NB;
-    group_sum(s, g, red + buf * warps * RS, RS, [&] {
-      if (g.G > 32 && g.gt == owner) {
+    group_sum<NB, HALF>(s, g, red + buf * warps * RS, RS, [&] {
+      if (!HALF && g.gt == owner) {
 #pragma unroll
         for (int j = 0; j < NB; ++j) wb[j] = pick(x[j], slot);
       }
     });
-    if (g.G <= 32) {
-      const int src = (g.lane & ~(g.G - 1)) + owner;
+    float pr[HALF ? NB : 1];
+    if constexpr (HALF) {
+      const int src = (g.lane & ~15) + owner;
 #pragma unroll
       for (int j = 0; j < NB; ++j)
         pr[j] = __shfl_sync(FULL, pick(x[j], slot), src);
-    } else {
-#pragma unroll
-      for (int j = 0; j < NB; ++j) pr[j] = wb[j];
     }
-    const Reflection q = reflection(s[0], pr[0]);
-    float k[NB];
-#pragma unroll
-    for (int j = 1; j < NB; ++j) k[j] = __fmul_rn(q.coef, q.head * pr[j] + s[j]);
+    const Reflection q = reflection(s[0], HALF ? pr[0] : wb[0]);
+    float u[4];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int e = e0 + r;
-      const float u = e > col ? x[0][r] : (e == col ? q.head : 0.0f);
+      u[r] = e > col ? x[0][r] : (e == col ? q.head : 0.0f);
+    }
 #pragma unroll
-      for (int j = 1; j < NB; ++j) x[j][r] = reflect_value<M>(x[j][r], k[j], u);
+    for (int j = 1; j < NB; ++j) {
+      const float k =
+          __fmul_rn(q.coef, q.head * (HALF ? pr[HALF ? j : 0] : wb[j]) + s[j]);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) x[j][r] = reflect_value<M>(x[j][r], k, u[r]);
     }
     if (g.gt == owner) {
       rs[col * 16 + col] = q.vec_len;

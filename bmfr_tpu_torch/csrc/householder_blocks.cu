@@ -19,16 +19,19 @@
 // whole number of warps above 32 (rows past the block are zero): 16
 // threads at block_edge 8 (16 blocks per CTA of 256), 64 at 16 (4
 // blocks), 160 at 24, 256 at 32. Dots and updates never leave the
-// registers; a group of 16 reduces and hands out the pivot row with warp
-// shuffles alone, larger groups with one barrier per reflection.
+// registers; a group of 16 (HALF, its own instance) reduces and hands out
+// the pivot row with warp shuffles alone, larger groups with one barrier
+// per reflection.
 //
 // What bounds it on this card: the 10 reductions per block, each a
 // dependent chain of shuffles (and a barrier above 32 threads). The
 // arithmetic is ~0.4 GFLOP per 1280x720 frame (6 us at the f32 peak),
 // the bytes 52 MB in (16 us at 3.35 TB/s), so the chain, not the card's
 // rates, sets its time; several resident CTAs per SM (launch bounds of 2
-// x 256 threads, <= 128 registers, up to 13 columns; 14 to 16 columns
-// take 1 x 256 and up to 255 registers rather than spill) hide it.
+// x 256 threads, <= 128 registers, for f32 tmp with up to 13 columns;
+// 14 to 16 columns, and f16/bf16 tmp, whose rounding needs a few more
+// registers, take 1 x 256 and up to 255 registers rather than spill)
+// hide it.
 
 #include "householder.cuh"
 
@@ -68,8 +71,8 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
 
 // Shared scratch (dynamic, sized by launch_geometry): red [2][warps][2 NB],
 // rows [2][groups][NB], rs [groups][NB][16].
-template <typename T, int M, int NB>
-__global__ void __launch_bounds__(THREADS, NB <= 13 ? 2 : 1)
+template <typename T, int M, int NB, bool HALF>
+__global__ void __launch_bounds__(THREADS, NB <= 13 && M == kF32 ? 2 : 1)
 fit_blocks_regs_kernel(const T* __restrict__ tmp, float* __restrict__ weights,
                        float* __restrict__ mins_maxs, int nb, int lo, int bp,
                        int G, Noise nz) {
@@ -136,8 +139,8 @@ fit_blocks_regs_kernel(const T* __restrict__ tmp, float* __restrict__ weights,
     }
   }
 
-  qr_registers<M, NB>(x, g, red, rows, rs, warps, groups);
-  if (G <= 32) {
+  qr_registers<M, NB, HALF>(x, g, red, rows, rs, warps, groups);
+  if (HALF) {
     __syncwarp();
   } else {
     __syncthreads();
@@ -166,10 +169,14 @@ extern "C" int bmfr_fit_blocks_registers(const void* tmp, float* weights,
   return with_storage(mode, [&](auto tag, auto m) {
     using T = typename decltype(tag)::type;
     return with_columns(B, [&](auto cols) {
-      constexpr int NB = decltype(cols)::value;
-      fit_blocks_regs_kernel<T, decltype(m)::value, NB>
-          <<<grid, blocks_per_cta * group, smem, stream>>>(
-              (const T*)tmp, weights, mins_maxs, nb, lo, bp, group, nz);
+      constexpr int NB = decltype(cols)::value, Mv = decltype(m)::value;
+      const unsigned threads = (unsigned)(blocks_per_cta * group);
+      if (group == 16)
+        fit_blocks_regs_kernel<T, Mv, NB, true><<<grid, threads, smem, stream>>>(
+            (const T*)tmp, weights, mins_maxs, nb, lo, bp, group, nz);
+      else
+        fit_blocks_regs_kernel<T, Mv, NB, false><<<grid, threads, smem, stream>>>(
+            (const T*)tmp, weights, mins_maxs, nb, lo, bp, group, nz);
       return (int)cudaGetLastError();
     });
   });

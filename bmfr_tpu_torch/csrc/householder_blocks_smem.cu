@@ -94,7 +94,7 @@ struct SmemQR {
       });
       const int buf = col & 1;
       float* wb = rows + buf * NB;
-      group_sum(s, g, red + buf * WARPS * RS, RS, [&] {
+      group_sum<NB, false>(s, g, red + buf * WARPS * RS, RS, [&] {
         if ((int)threadIdx.x == col) {  // row col is this thread's row k = 0
 #pragma unroll
           for (int c = 0; c < NB; ++c) wb[c] = get(c, col, 0);

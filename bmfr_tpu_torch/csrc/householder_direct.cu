@@ -14,9 +14,9 @@
 // the fit there, and holds them through the reflections (52 floats); the
 // block min/max, the fused reduction of each reflection and the hand-out
 // of the pivot row are the only shared traffic (householder.cuh). For the
-// reconstruction the thread either keeps its pixels' 6 normals and
-// positions in registers (KEEP) or reads them again from L2; chip_smoke.py
-// times both, and the wrappers take the faster.
+// reconstruction it reads its in-image pixels' normals and positions again
+// (from L2): keeping them in registers instead spilled 24-108 B a thread
+// and was 1.6 % slower on the H100 (PERF.md, Findings).
 //
 // What bounds it on this card: the 10 barrier-separated reductions of each
 // 256-thread block, as for kernel D. The bytes are 33 MB of raw planes in
@@ -29,7 +29,7 @@ namespace {
 
 using namespace bmfr;
 
-template <int M, bool KEEP>
+template <int M>
 __global__ void __launch_bounds__(THREADS, 2)
 fit_direct_kernel(const float* __restrict__ normals,
                   const float* __restrict__ positions,
@@ -52,10 +52,8 @@ fit_direct_kernel(const float* __restrict__ normals,
   const int gx0 = (int)blockIdx.x * BE + (e0 & 31) - BE / 2 + ox;
   const int64_t row = (int64_t)mirror(gy, H) * W;
 
-  // the stored rows of the fit straight from the loads; the raw normals
-  // and positions stay only where KEEP asks for them
+  // the stored rows of the fit straight from the loads
   float x[NBUF][4];
-  float raw[KEEP ? 4 : 1][6];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     float px[9], v[NBUF];
@@ -63,10 +61,6 @@ fit_direct_kernel(const float* __restrict__ normals,
     stored_row<M>(px, v);
 #pragma unroll
     for (int c = 0; c < NBUF; ++c) x[c][k] = v[c];
-    if constexpr (KEEP) {
-#pragma unroll
-      for (int c = 0; c < 6; ++c) raw[k][c] = px[c];
-    }
   }
 
   // block min/max of the stored scaled features: mm[j] = -min, mm[NSC+j] = max
@@ -98,7 +92,7 @@ fit_direct_kernel(const float* __restrict__ normals,
     for (int c = 0; c < NBUF; ++c) x[c][k] = v[c];
   }
 
-  qr_registers<M, NBUF>(x, g, red, rows, rs, WARPS, 1);
+  qr_registers<M, NBUF, false>(x, g, red, rows, rs, WARPS, 1);
   __syncthreads();
   if (tid < 3) {
     float w[NF];
@@ -126,50 +120,41 @@ fit_direct_kernel(const float* __restrict__ normals,
     const int ix = gx0 + k;
     if (ix < 0 || ix >= W) continue;
     const int64_t off = (int64_t)gy * W + ix;
-    if constexpr (KEEP) {
-      reconstruct_pixel(raw[k], smin, sden, sw, out, n, off);
-    } else {  // an in-image view cell reads its own pixel: again, from L2
-      float q[6];
+    // an in-image view cell reads its own pixel
+    float q[6];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        q[c] = normals[c * n + off];
-        q[3 + c] = positions[c * n + off];
-      }
-      reconstruct_pixel(q, smin, sden, sw, out, n, off);
+    for (int c = 0; c < 3; ++c) {
+      q[c] = normals[c * n + off];
+      q[3 + c] = positions[c * n + off];
     }
+    reconstruct_pixel(q, smin, sden, sw, out, n, off);
   }
 }
 
-template <int M, bool KEEP>
+template <int M>
 int launch(const float* normals, const float* positions, const float* accum,
            float* out, float* weights, float* mins_maxs, int H, int W,
            int blocks_x, int blocks_y, int ox, int oy, Noise nz,
            cudaStream_t stream) {
   const dim3 grid((unsigned)blocks_x, (unsigned)blocks_y);
-  fit_direct_kernel<M, KEEP><<<grid, THREADS, 0, stream>>>(
+  fit_direct_kernel<M><<<grid, THREADS, 0, stream>>>(
       normals, positions, accum, out, weights, mins_maxs, H, W, ox, oy, nz);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// mode: tmp dtype 0 f32, 1 f16, 2 bf16; keep_raw: 1 keeps the
-// reconstruction's normals and positions in registers, 0 reads them again;
-// noise_base, noise_amp: the hash noise (fitter_front.cuh).
+// mode: tmp dtype 0 f32, 1 f16, 2 bf16; noise_base, noise_amp: the hash
+// noise (fitter_front.cuh).
 extern "C" int bmfr_fit_direct_householder(
     const float* normals, const float* positions, const float* accum,
     float* out, float* weights, float* mins_maxs, int H, int W, int blocks_x,
-    int blocks_y, int ox, int oy, int mode, int keep_raw, unsigned noise_base,
+    int blocks_y, int ox, int oy, int mode, unsigned noise_base,
     float noise_amp, cudaStream_t stream) {
   const Noise nz{noise_base, noise_amp, BP};
   return with_storage(mode, [&](auto, auto m) {
-    constexpr int Mv = decltype(m)::value;
-    if (keep_raw)
-      return launch<Mv, true>(normals, positions, accum, out, weights,
-                              mins_maxs, H, W, blocks_x, blocks_y, ox, oy, nz,
-                              stream);
-    return launch<Mv, false>(normals, positions, accum, out, weights,
-                             mins_maxs, H, W, blocks_x, blocks_y, ox, oy, nz,
-                             stream);
+    return launch<decltype(m)::value>(normals, positions, accum, out, weights,
+                                      mins_maxs, H, W, blocks_x, blocks_y, ox,
+                                      oy, nz, stream);
   });
 }

@@ -39,8 +39,8 @@ _SIGNATURES = {
     # ox, oy, mode, noise_base, noise_amp, stream
     "bmfr_fit_reconstruct_cholesky": (_P,) * 5 + (_I,) * 7 + (_U, _F, _P),
     # normals, positions, accum, out, weights, mins_maxs, H, W, blocks_x,
-    # blocks_y, ox, oy, mode, keep_raw, noise_base, noise_amp, stream
-    "bmfr_fit_direct_householder": (_P,) * 6 + (_I,) * 8 + (_U, _F, _P),
+    # blocks_y, ox, oy, mode, noise_base, noise_amp, stream
+    "bmfr_fit_direct_householder": (_P,) * 6 + (_I,) * 7 + (_U, _F, _P),
     # tmp, weights, mins_maxs, nb, B, lo, bp, mode, group, blocks_per_cta,
     # smem, noise_base, noise_amp, stream
     "bmfr_fit_blocks_registers": (_P,) * 3 + (_I,) * 8 + (_U, _F, _P),

@@ -41,10 +41,6 @@ from .fitter_pallas import MODE
 from .weighted_sum import weighted_sum_image
 
 BLOCK_EDGE = 32
-#: kernel C keeps each pixel's normals and positions in registers for the
-#: reconstruction (1) or reads them again from L2 (0); chip_smoke.py times
-#: both
-KEEP_RAW = 1
 
 
 def _check_cfg(cfg):
@@ -70,11 +66,9 @@ def _reconstruct_plain(cfg, solver, normals, positions, accum, frame):
                               frame), w
 
 
-def _launch_direct(name, cfg, normals, positions, accum, frame, *outs,
-                   extra=()):
+def _launch_direct(name, cfg, normals, positions, accum, frame, *outs):
     """Check the planes and launch direct kernel ``name`` on them, writing
-    into ``outs`` (tensors, or None for an output the kernel skips);
-    ``extra``: the kernel's arguments after the mode."""
+    into ``outs`` (tensors, or None for an output the kernel skips)."""
     _check_cfg(cfg)
     dev = normals.device
     H, W = cfg.image_height, cfg.image_width
@@ -87,7 +81,7 @@ def _launch_direct(name, cfg, normals, positions, accum, frame, *outs,
     ptr = [0 if t is None else t.data_ptr() for t in outs]
     _lib.launch(name, normals.data_ptr(), positions.data_ptr(),
                 accum.data_ptr(), *ptr, H, W, cfg.blocks_x, cfg.blocks_y,
-                ox, oy, MODE[cfg.tmp_data_dtype], *extra, base, amp)
+                ox, oy, MODE[cfg.tmp_data_dtype], base, amp)
 
 
 def _device(fn_name, t):
@@ -140,13 +134,11 @@ def fit_reconstruct_direct_reference(cfg, normals, positions, accum, frame):
                               accum, frame)
 
 
-def fit_reconstruct_direct(cfg, normals, positions, accum, frame, *,
-                           keep_raw=None):
+def fit_reconstruct_direct(cfg, normals, positions, accum, frame):
     """Fit every block by Householder QR and reconstruct the filtered
     image (kernel C, the JAX ``fit_reconstruct_direct`` with its
     inverse-jitter slice fused). Same arguments and outputs as
-    :func:`fit_reconstruct_cholesky`. ``keep_raw``: override
-    :data:`KEEP_RAW` (for timing both).
+    :func:`fit_reconstruct_cholesky`.
 
     On a CUDA tensor this launches the kernel; on a CPU tensor it runs
     :func:`fit_reconstruct_direct_reference`. Any other device raises.
@@ -156,9 +148,8 @@ def fit_reconstruct_direct(cfg, normals, positions, accum, frame, *,
         return fit_reconstruct_direct_reference(cfg, normals, positions,
                                                 accum, frame)
     out, w, _ = _outputs(cfg, dev)
-    keep = KEEP_RAW if keep_raw is None else int(keep_raw)
     _launch_direct("bmfr_fit_direct_householder", cfg, normals, positions,
-                   accum, frame, out, w, None, extra=(keep,))
+                   accum, frame, out, w, None)
     fit_reconstruct_direct.launches += 1
     return out, w
 
@@ -184,7 +175,7 @@ def fit_blocks_direct(cfg, normals, positions, accum, frame):
                                            frame)
     _, w, mm = _outputs(cfg, dev, image=False, mins_maxs=True)
     _launch_direct("bmfr_fit_direct_householder", cfg, normals, positions,
-                   accum, frame, None, w, mm, extra=(KEEP_RAW,))
+                   accum, frame, None, w, mm)
     fit_blocks_direct.launches += 1
     return w, mm
 

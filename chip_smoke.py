@@ -7,8 +7,7 @@ Run from the repository root on a machine with a CUDA card:
 It builds the five CUDA kernels from ``bmfr_tpu_torch/csrc/`` with nvcc
 and holds each against its plain PyTorch version at 1280x720 on the
 orbit scene: A (warp + blend), B (Cholesky direct fitter, f32 and f16
-tmp), C (Householder direct fitter, both entries, with and without the
-raw values kept in registers), D (block fitter: f32, f16 and bf16 tmp at
+tmp), C (Householder direct fitter, both entries), D (block fitter: f32, f16 and bf16 tmp at
 block_edge 32, f32 at 8, 16, 48 and 64) and E (row-pair gather,
 bit-equal, also at saturated coordinates). For each kernel it measures
 its device time per call (torch.profiler), computes its bound (the bytes
@@ -521,11 +520,6 @@ def main():
         hh_flagship, c5.normals, c5.positions, c5.noisy, 5), 50),
         cuda_ms(lambda: fit_blocks_direct_reference(
             hh_flagship, c5.normals, c5.positions, c5.noisy, 5), 5))
-    for keep in (0, 1):
-        dev_ms[f"C keep_raw {keep}"] = kernel_device_ms(
-            lambda: fit_reconstruct_direct(hh_flagship, c5.normals,
-                                           c5.positions, c5.noisy, 5,
-                                           keep_raw=keep), "fit_direct_kernel")
     dev_ms["C"] = kernel_device_ms(lambda: fit_reconstruct_direct(
         hh_flagship, c5.normals, c5.positions, c5.noisy, 5),
         "fit_direct_kernel")
