@@ -79,7 +79,7 @@ MM_TOL = 1e-6
 #: each path with kernels vs with plain versions, per frame
 PATH_MIN_DB = 60.0
 SCENE_LIMITS = dict(position_limit_squared=0.03, normal_limit_squared=0.5)
-#: the H100 SXM's data-sheet peaks (on-chip-measurement guide): HBM bytes
+#: the H100 SXM's data-sheet peaks: HBM bytes
 #: per second and f32 operations per second outside the tensor cores
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
