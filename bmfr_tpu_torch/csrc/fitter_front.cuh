@@ -1,12 +1,13 @@
 // The shared front and back of the direct fitter kernels for Hopper
 // (sm_90a): kernel B (fitter_chol.cu, Cholesky) and kernel C
-// (householder_direct.cu, Householder QR), and the hash noise that every
-// fitter kernel (B, C, D) adds to its feature columns. The TPU kernels
-// share the front the same way (_build_block_data,
+// (householder_direct.cu, Householder QR), and what every fitter kernel
+// (B, C, D) shares: the hash noise it adds to its feature columns and the
+// transpose reduction of its per-warp sums (transpose_halves). The TPU
+// kernels share the front the same way (_build_block_data,
 // bmfr_tpu/ops/fitter_direct.py:165-217).
 //
 // Both direct kernels fit one 32x32 block of the jittered margins grid per
-// CTA of 256 threads. A view cell (gy, gx) reads image pixel
+// CTA (C: 256 threads, B: 128). A view cell (gy, gx) reads image pixel
 // (mirror(gy-16+oy, H), mirror(gx-16+ox, W)) -- the symmetric pad as
 // arithmetic, no padded copy -- for the 9 raw planes (normals, positions,
 // accumulated colour): a pixel's 9 values px[9]. Per pixel:
@@ -19,11 +20,12 @@
 //                 none; finish_row);
 //   reconstruct_pixel  max(sum_f w_f * basis_f, 0) with the basis built
 //                 from the pre-rounding, unsanitized, noise-free f32
-//                 features, written straight to image pixel (gy-16+oy,
-//                 gx-16+ox) when that lies in the image (in-image view cells
-//                 map one to one onto the image): the inverse-jitter slice
-//                 of the JAX pipeline (bmfr_tpu/pipeline/denoise.py:218-225)
-//                 is fused.
+//                 features (scaled_basis; reconstruct_from_basis takes a
+//                 basis built ahead), written straight to image pixel
+//                 (gy-16+oy, gx-16+ox) when that lies in the image
+//                 (in-image view cells map one to one onto the image): the
+//                 inverse-jitter slice of the JAX pipeline
+//                 (bmfr_tpu/pipeline/denoise.py:218-225) is fused.
 // Rounding is __float2half_rn / __float2bfloat16_rn (nearest-even; above
 // 65504 a half rounds to inf, as a half store does).
 
@@ -138,10 +140,38 @@ __device__ __forceinline__ float scale_den(float rmin, float rmax) {
   return fabsf(r) > 1.0f ? r : 1.0f;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+struct SumOp {
+  __device__ static float f(float a, float b) { return a + b; }
+};
+struct MaxOp {
+  __device__ static float f(float a, float b) { return fmaxf(a, b); }
+};
+
+// The transpose reduction of P values over a warp (kernels B, C, D): at
+// each of STEPS steps a lane and its partner (lane ^ o, o = 16, 8, ..)
+// split the values they still carry; each keeps one half, combines its
+// partner's copy of that half into it and hands over the other half
+// (P/2 + P/4 + .. shuffles, not 5 P). After the steps a[0 .. P >> STEPS)
+// of lane L hold the Op-totals, over the 2^STEPS lanes that differ from L
+// only in the bits o, of values i + (P >> STEPS) * ((L >> (5 - STEPS)) &
+// (2^STEPS - 1)): with P = 96 and STEPS = 5, lane L holds the warp's
+// totals of values 3L, 3L + 1 and 3L + 2.
+template <class Op, int P, int STEPS, int S = 0>
+__device__ __forceinline__ void transpose_halves(float (&a)[P], int lane) {
+  static_assert(STEPS <= 5 && (P >> STEPS) << STEPS == P, "P / 2^STEPS");
+  if constexpr (S < STEPS) {
+    // one step per instance: its trip count is a constant, so the loop
+    // unrolls and a[] stays in registers
+    constexpr int half = P >> (S + 1), o = 16 >> S;
+    const bool upper = (lane & o) != 0;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
+    for (int i = 0; i < half; ++i) {
+      const float give = upper ? a[i] : a[i + half];
+      const float keep = upper ? a[i + half] : a[i];
+      a[i] = Op::f(keep, __shfl_xor_sync(FULL, give, o));
+    }
+    transpose_halves<Op, P, STEPS, S + 1>(a, lane);
+  }
 }
 
 // The stored values of a pixel's row of the fit before the rescale and
@@ -184,8 +214,29 @@ __device__ __forceinline__ void fit_values(const float* px, int e,
   finish_row<M>(v, e, smin, sden, nz);
 }
 
-// max(sum_f w[ch * NF + f] * basis_f, 0) of one pixel into image pixel off
-// (NaN kept, as torch.maximum / jnp.maximum keep it).
+// scaled basis feature j (0..NSC) of a pixel: its raw feature rescaled by
+// the block min/max, without the storage rounding
+__device__ __forceinline__ float scaled_basis(const float* px, int j,
+                                              const float* smin,
+                                              const float* sden) {
+  return (scaled_feature(px, j) - smin[j]) / sden[j];
+}
+
+// max(sum_f w[ch * NF + f] * basis[f], 0) for each colour ch into image
+// pixel off (NaN kept, as torch.maximum / jnp.maximum keep it).
+__device__ __forceinline__ void reconstruct_from_basis(
+    const float (&basis)[NF], const float* w, float* __restrict__ out,
+    int64_t n, int64_t off) {
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    float col = 0.0f;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) col = col + basis[f] * w[ch * NF + f];
+    out[ch * n + off] = isnan(col) ? col : fmaxf(col, 0.0f);
+  }
+}
+
+// The reconstruction of one pixel into image pixel off.
 __device__ __forceinline__ void reconstruct_pixel(const float* px,
                                                   const float* smin,
                                                   const float* sden,
@@ -198,14 +249,8 @@ __device__ __forceinline__ void reconstruct_pixel(const float* px,
   for (int c = 0; c < 3; ++c) basis[1 + c] = px[c];
 #pragma unroll
   for (int j = 0; j < NSC; ++j)
-    basis[LO + j] = (scaled_feature(px, j) - smin[j]) / sden[j];
-#pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    float col = 0.0f;
-#pragma unroll
-    for (int f = 0; f < NF; ++f) col = col + basis[f] * w[ch * NF + f];
-    out[ch * n + off] = isnan(col) ? col : fmaxf(col, 0.0f);
-  }
+    basis[LO + j] = scaled_basis(px, j, smin, sden);
+  reconstruct_from_basis(basis, w, out, n, off);
 }
 
 }  // namespace bmfr

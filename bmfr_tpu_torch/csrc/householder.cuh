@@ -33,10 +33,6 @@ namespace bmfr {
 
 constexpr int MAXB = 16;  // columns (features + colours) a block may have
 
-struct MaxOp {
-  __device__ static float f(float a, float b) { return fmaxf(a, b); }
-};
-
 // A group of G threads fits one block: G = 16 (half a warp) or a multiple
 // of 32. Groups sit side by side in the CTA.
 struct Group {
@@ -104,14 +100,13 @@ __device__ __forceinline__ float reflect_value(float x, float k, float u) {
 // the group, left in every lane's v. A group of 16 (half a warp) takes a
 // butterfly, whose lanes all end with the same totals (the adds commute;
 // measured faster there than the transpose below). A larger group takes a
-// transpose reduction per warp: at each of four steps a lane and its
-// partner split the values they still carry and each adds the half it
-// keeps to the partner's copy (8 + 4 + 2 + 1 shuffles, not 5 N), so lanes
-// 2c and 2c + 1 end with the warp's total of value c after one more
-// exchange; they write it to red [warps][stride] (red_buf, this
-// reflection's buffer), and after the one barrier lane c sums value c over
-// the group's warps, in warp order, and hands it out by shuffles. sync:
-// the caller's shared writes before the barrier (the pivot row).
+// transpose reduction per warp (fitter_front.cuh, four steps: 8 + 4 + 2 +
+// 1 shuffles, not 5 N), so lanes 2c and 2c + 1 end with the warp's total
+// of value c after one more exchange; they write it to red
+// [warps][stride] (red_buf, this reflection's buffer), and after the one
+// barrier lane c sums value c over the group's warps, in warp order, and
+// hands it out by shuffles. sync: the caller's shared writes before the
+// barrier (the pivot row).
 template <int N, bool HALF, class Sync>
 __device__ __forceinline__ void group_sum(float (&v)[N], const Group& g,
                                           float* red_buf, int stride,
@@ -129,17 +124,7 @@ __device__ __forceinline__ void group_sum(float (&v)[N], const Group& g,
   float a[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) a[i] = i < N ? v[i] : 0.0f;
-#pragma unroll
-  for (int step = 0; step < 4; ++step) {
-    const int half = 8 >> step, o = 16 >> step;
-    const bool upper = (g.lane & o) != 0;
-#pragma unroll
-    for (int i = 0; i < half; ++i) {
-      const float give = upper ? a[i] : a[i + half];
-      const float keep = upper ? a[i + half] : a[i];
-      a[i] = keep + __shfl_xor_sync(FULL, give, o);
-    }
-  }
+  transpose_halves<SumOp, 16, 4>(a, g.lane);
   a[0] += __shfl_xor_sync(FULL, a[0], 1);
   const int idx = (g.lane >> 1) & 15;
   if ((g.lane & 1) == 0 && idx < N) red_buf[g.wcta * stride + idx] = a[0];

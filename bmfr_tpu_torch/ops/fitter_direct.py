@@ -4,7 +4,9 @@ their plain PyTorch versions.
 
 - Kernel B (``csrc/fitter_chol.cu``) replaces the TPU's ``_chol_kernel``
   (``bmfr_tpu/ops/fitter_direct.py``, entry ``fit_reconstruct_cholesky``):
-  the normal equations solved by Cholesky.
+  the normal equations solved by Cholesky, factored and solved on one
+  warp in ``_chol_kernel``'s order while the CTA's other warps rescale
+  the reconstruction's basis.
 - Kernel C (``csrc/householder_direct.cu``) replaces the TPU's
   ``_qr_kernel`` (entries ``fit_reconstruct_direct`` and
   ``fit_blocks_direct``): the reference-exact Householder QR, each

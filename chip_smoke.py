@@ -7,9 +7,10 @@ Run from the repository root on a machine with a CUDA card:
 It builds the five CUDA kernels from ``bmfr_tpu_torch/csrc/`` with nvcc
 and holds each against its plain PyTorch version at 1280x720 on the
 orbit scene: A (warp + blend), B (Cholesky direct fitter, f32 and f16
-tmp), C (Householder direct fitter, both entries), D (block fitter: f32, f16 and bf16 tmp at
-block_edge 32, f32 at 8, 16, 48 and 64) and E (row-pair gather,
-bit-equal, also at saturated coordinates). For each kernel it measures
+tmp; its device time also on bf16), C (Householder direct fitter, both
+entries), D (block fitter: f32, f16 and bf16 tmp at block_edge 32, f32 at
+8, 16, 48 and 64) and E (row-pair gather, bit-equal, also at saturated
+coordinates). For each kernel it measures
 its device time per call (torch.profiler), computes its bound (the bytes
 it must move over 3.35 TB/s or its f32 operations over 67 TFLOP/s,
 whichever is larger) from this run's inputs, and times the one PyTorch
@@ -491,6 +492,11 @@ def main():
             cfg, c5.normals, c5.positions, c5.noisy, 5), 5))
     dev_ms["B"] = kernel_device_ms(lambda: fit_reconstruct_cholesky(
         cfg, c5.normals, c5.positions, c5.noisy, 5), "fit_chol_kernel")
+    for dtype in ("float16", "bfloat16"):
+        bcfg = cfg.replace(tmp_data_dtype=dtype)
+        dev_ms[f"B {dtype}"] = kernel_device_ms(
+            lambda: fit_reconstruct_cholesky(bcfg, c5.normals, c5.positions,
+                                             c5.noisy, 5), "fit_chol_kernel")
     # in: 9 raw planes; out: the image and the weights. Per view cell ~30
     # operations of features and 170 of the 85 Gram and rhs sums, per
     # image pixel 60 of the reconstruction

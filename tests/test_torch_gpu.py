@@ -17,7 +17,7 @@ import bmfr_tpu_torch as bt
 from bmfr_tpu_torch.io.fixtures import synthetic_sequence
 from bmfr_tpu_torch.metrics import psnr
 from bmfr_tpu_torch.ops import fitter, fitter_direct
-from bmfr_tpu_torch.ops.blockify import STORAGE_DTYPES
+from bmfr_tpu_torch.ops.blockify import STORAGE_DTYPES, jitter_offset
 from bmfr_tpu_torch.ops.fitter_direct import (
     fit_reconstruct_cholesky, fit_reconstruct_cholesky_reference)
 from bmfr_tpu_torch.ops.fitter_pallas import (fit_blocks_pallas,
@@ -31,6 +31,9 @@ from bmfr_tpu_torch.ops.warp_blend import warp_blend, warp_blend_reference
 pytestmark = pytest.mark.gpu
 
 SHAPES = [(48, 160), (37, 83), (120, 200)]
+#: kernel B's shapes: also one of 12 blocks, far fewer than the CTAs an
+#: H100 holds at once
+FIT_SHAPES = SHAPES + [(64, 96)]
 
 
 @pytest.fixture
@@ -84,7 +87,7 @@ def test_warp_blend_kernel_matches_plain(cuda, H, W):
     assert bool((got[5] == want[5]).all())
 
 
-@pytest.mark.parametrize("H,W", SHAPES)
+@pytest.mark.parametrize("H,W", FIT_SHAPES)
 @pytest.mark.parametrize("frame", [0, 5, 13])
 def test_fit_kernel_matches_plain(cuda, H, W, frame):
     cfg = scene_cfg(H, W)
@@ -99,7 +102,7 @@ def test_fit_kernel_matches_plain(cuda, H, W, frame):
     assert torch.equal((w == 0).all(dim=(1, 2)), (w_ref == 0).all(dim=(1, 2)))
 
 
-@pytest.mark.parametrize("H,W", SHAPES)
+@pytest.mark.parametrize("H,W", FIT_SHAPES)
 @pytest.mark.parametrize("frame", [0, 5, 13])
 @pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
 def test_fit_kernel_reduced_precision_matches_plain(cuda, monkeypatch, H, W,
@@ -129,6 +132,51 @@ def test_fit_kernel_reduced_precision_matches_plain(cuda, monkeypatch, H, W,
     got, want, exact = (x.cpu().numpy() for x in (got, want, exact))
     assert psnr(got, exact) >= psnr(want, exact) - 3.0
     assert torch.equal((w == 0).all(dim=(1, 2)), (w_ref == 0).all(dim=(1, 2)))
+
+
+def planes_with_flat_block(cfg, frame, by, bx, dev):
+    """Seeded random normals, positions and colours, except on the image
+    footprint of block (by, bx) at frame's jitter: there the normals and
+    positions are constant (powers of two, so every Gram sum is exact)
+    and the colours vary a little around a constant."""
+    r = np.random.default_rng(11)
+    H, W = cfg.image_height, cfg.image_width
+    n, p = (r.uniform(-1, 1, (3, H, W)).astype(np.float32) for _ in "np")
+    a = r.uniform(0, 1, (3, H, W)).astype(np.float32)
+    ox, oy = jitter_offset(frame)
+    y0, x0 = by * 32 - 16 + oy, bx * 32 - 16 + ox
+    assert 0 <= y0 and y0 + 32 <= H and 0 <= x0 and x0 + 32 <= W
+    flat = (slice(None), slice(y0, y0 + 32), slice(x0, x0 + 32))
+    n[flat] = np.float32([0.5, 0.25, 1.0])[:, None, None]
+    p[flat] = np.float32([0.75, -0.5, 0.25])[:, None, None]
+    a[flat] = (np.float32([0.3, 0.6, 0.9])[:, None, None]
+               + 0.05 * r.standard_normal((3, 32, 32)).astype(np.float32))
+    return [torch.from_numpy(x).to(dev) for x in (n, p, a)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("noise,singular", [(0.0, True), (1e-3, False)],
+                         ids=["singular", "near-degenerate"])
+def test_fit_kernel_degenerate_block(cuda, dtype, noise, singular):
+    """Kernel B on a block whose features are constant. Without noise its
+    Gram has rank 1: the second pivot is exactly 0, the weights NaN, and
+    the block's weights are all zero, as in the plain version. With
+    noise 1e-3 the noise alone conditions it (weights of norm ~15): the
+    reconstruction holds to 5e-3 (the plain version's f32 sums sit ~2e-5
+    from f64 ones there)."""
+    H, W, frame, by, bx = 96, 160, 5, 1, 2
+    cfg = scene_cfg(H, W).replace(tmp_data_dtype=dtype, noise_amount=noise)
+    planes = planes_with_flat_block(cfg, frame, by, bx, cuda)
+    n0 = fit_reconstruct_cholesky.launches
+    got, w = fit_reconstruct_cholesky(cfg, *planes, frame)
+    assert fit_reconstruct_cholesky.launches == n0 + 1
+    want, w_ref = fit_reconstruct_cholesky_reference(cfg, *planes, frame)
+    torch.cuda.synchronize()
+    zero = (w == 0).all(dim=(1, 2))
+    assert torch.equal(zero, (w_ref == 0).all(dim=(1, 2)))
+    assert zero.nonzero().flatten().tolist() == (
+        [by * cfg.blocks_x + bx] if singular else [])
+    torch.testing.assert_close(got, want, rtol=5e-3, atol=5e-3)
 
 
 def test_slice_kernels_match_plain(cuda):
