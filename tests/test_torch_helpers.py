@@ -4,6 +4,7 @@ mirror addressing, the synthetic fixture, the config, the small stage
 helpers; and the import boundary (the port never loads JAX)."""
 
 import dataclasses
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -152,6 +153,18 @@ def test_port_imports_neither_jax_nor_reference():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_port_scripts_import_neither_jax_nor_reference():
+    """The port's scripts (``scripts/torch_*.py``, run on the card's host,
+    which has no jax), child code in their strings included, import
+    neither jax nor bmfr_tpu."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|bmfr_tpu)\b",
+                         re.M)
+    scripts = sorted((REPO / "scripts").glob("torch_*.py"))
+    assert len(scripts) >= 2
+    for path in scripts:
+        assert not pattern.search(path.read_text()), path.name
 
 
 def test_wrappers_take_the_plain_version_only_on_cpu(tiny_cfg):
