@@ -122,7 +122,7 @@ def main():
                     help="a checkout of the repository (repeatable)")
     args = ap.parse_args()
     work = Path(tempfile.mkdtemp(prefix="fitter_ab_"))
-    saves = [work / f"b_{i}.npz" for i in range(len(args.root))]
+    saves = [work / f"out_{i}.npz" for i in range(len(args.root))]
     results = [run_root(r, [list(c) for c in D_CASES], f)
                for r, f in zip(args.root, saves)]
     outputs = [dict(np.load(f)) for f in saves]
