@@ -6,7 +6,9 @@ Port of :mod:`bmfr_tpu.pipeline.denoise`. Per frame (opencl/bmfr.cpp:
 1. reproject (torch);
 2. the warp branch, the 13 blend planes of the previous state:
    ``warp_mode="pallas"`` runs kernel A on the bf16 channel-pair
-   :class:`PackedState`
+   :class:`PackedState` (or on the pack of a raw-plane
+   :class:`~bmfr_tpu_torch.pipeline.state.TemporalState`, as the
+   streaming and checkpoint carry)
    (:func:`~bmfr_tpu_torch.ops.warp_blend.warp_blend`); every other mode
    gathers the taps of the raw-plane
    :class:`~bmfr_tpu_torch.pipeline.state.TemporalState` with
@@ -21,8 +23,9 @@ Port of :mod:`bmfr_tpu.pipeline.denoise`. Per frame (opencl/bmfr.cpp:
    reconstructs them (:func:`~bmfr_tpu_torch.ops.weighted_sum.
    weighted_sum`);
 5. K4 and 6. K5 (torch);
-7. the next state: packed into the state buffer in place, or a new
-   :class:`TemporalState` of this frame's planes.
+7. the next state, of the type of the previous one: packed into the
+   state buffer in place, or a new :class:`TemporalState` of this
+   frame's planes.
 
 Frame 0 has no history: no warp or gather runs and the planes are zero
 (JAX's ``history="never"``). The reference's one-frame matrix lag (frame
@@ -98,9 +101,17 @@ def _warp_planes(cfg, state, inputs, pfx, pfy, frame, plain):
                              device=inputs.noisy.device)
         return planes, torch.zeros(6, dtype=torch.int32)
     if cfg.warp_mode == "pallas":
+        if isinstance(state, TemporalState):
+            # the raw planes packed at the read, in the channel order of
+            # TemporalState.stacked(): rounding to bf16 here gives the
+            # words a PackedState carry stores, with no stacked f32 copy
+            src8 = pack_pairs_bf16([*state.positions, *state.normals,
+                                    *state.noisy, state.spp.float(),
+                                    *state.out, *state.result])
+        else:
+            src8 = state.src8
         warp = warp_blend_reference if plain else warp_blend
-        planes = warp(cfg, state.src8, inputs.positions, inputs.normals,
-                      pfx, pfy)
+        planes = warp(cfg, src8, inputs.positions, inputs.normals, pfx, pfy)
         # no tiers on the GPU: the kernel serves every pixel
         return planes, torch.tensor([0, 0, 0, 0, 0, H * W],
                                     dtype=torch.int32)
@@ -140,10 +151,13 @@ def denoise_frame(cfg, state, inputs: FrameInputs, prev_cam, pixel_offset,
                   frame: int, *, plain=False):
     """Run the 5-stage chain for frame number ``frame`` (a host int).
 
-    ``state`` is a :class:`PackedState` when ``warp_mode="pallas"`` (its
-    buffer is overwritten with the next state: the warp reads the old
+    ``state`` is a :class:`TemporalState` or, with ``warp_mode="pallas"``,
+    a :class:`PackedState`; the next state has the same type. A packed
+    buffer is overwritten with the next state (the warp reads the old
     words before the pack writes them, in stream order, so one buffer
-    suffices), else a :class:`TemporalState`. ``prev_cam``: f32
+    suffices). On the fused warp a :class:`TemporalState` is packed at
+    the read into a fresh buffer, the words a packed carry would hold, so
+    both carries give the same outputs bit for bit. ``prev_cam``: f32
     ``[4, 4]``; ``pixel_offset``: f32 ``[2]``. ``plain=True`` runs the
     plain PyTorch versions of the kernels instead of the kernels (for
     checking the kernels on the card).
@@ -154,6 +168,8 @@ def denoise_frame(cfg, state, inputs: FrameInputs, prev_cam, pixel_offset,
     ``warp_stats``).
     """
     check_supported(cfg)
+    if isinstance(state, PackedState) and cfg.warp_mode != "pallas":
+        raise ValueError("a PackedState needs warp_mode='pallas'")
     pfx, pfy = reproject_coords(cfg, inputs.positions, prev_cam,
                                 pixel_offset)
     planes, warp_stats = _warp_planes(cfg, state, inputs, pfx, pfy, frame,
@@ -165,7 +181,7 @@ def denoise_frame(cfg, state, inputs: FrameInputs, prev_cam, pixel_offset,
                                          inputs.albedo, k1["spp"], frame)
     result = taa(cfg, k1["prev_pixels"], tone, planes, frame)
 
-    if cfg.warp_mode == "pallas":
+    if isinstance(state, PackedState):
         # the next state, packed per channel straight into the state
         # buffer (words 0:3 geometry, 3:5 accumulated colour + spp, 5:8
         # out + result)

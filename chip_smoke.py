@@ -23,7 +23,16 @@ with ``solver="householder"`` (kernels A and C). For each it checks the
 launch counts, agreement with the same path on the plain versions and
 that every frame is closer to the clean render than its noisy input,
 and times the steady frames with CUDA events and the profiler, with the
-launches per frame that the in-kernel noise saves. Kernel E
+launches per frame that the in-kernel noise saves. The stream phase
+writes the 16 frames to a temporary directory in the TUNI layout
+(``io/export.py``; a second directory links the same files under a
+camera header with a tight position limit), finds both with
+``discover_scenes``, streams the flagship and the default path from disk
+in chunks of 5 (``stream_scene``: launch counts, bit-equal to
+``denoise_sequence``), resumes the flagship from a checkpoint at frame 8
+(bit-equal), streams both directories at once (``stream_scenes``: the
+first bit-equal, the second different), and splits the streamed
+flagship's time into ingest, compute and wall. Kernel E
 is off every pipeline path: it is driven by ``gather_taps(mode=
 "pallas")`` over the default path's 15 warped states. The last line is
 the JSON contract ``{"ok": true, "device": {...}}``; any failed check
@@ -34,14 +43,20 @@ once.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 import bmfr_tpu_torch as bt
+from bmfr_tpu_torch.io import native
+from bmfr_tpu_torch.io.dataset import discover_scenes
+from bmfr_tpu_torch.io.export import export_scene, write_camera_header
 from bmfr_tpu_torch.io.fixtures import synthetic_sequence
 from bmfr_tpu_torch.metrics import psnr
 from bmfr_tpu_torch.ops import _lib
@@ -62,6 +77,8 @@ from bmfr_tpu_torch.ops.warp_blend import warp_blend, warp_blend_reference
 from bmfr_tpu_torch.rng import feature_noise
 
 WIDTH, HEIGHT, FRAMES = 1280, 720, 16
+#: frames per chunk of the stream phase: chunks of 5, 5, 5 and 1
+STREAM_CHUNK = 5
 #: kernel A: accept plane equal on this share of pixels (flips only from
 #: rounding at the limit compare); other planes to 1e-5 (rtol = atol)
 ACCEPT_SHARE, WARP_TOL = 0.9999, 1e-5
@@ -404,6 +421,181 @@ def run_path(label, cfg, sc, inputs, cams, offs, counters, expected):
                 noisy_clean_psnr_db=noisy_db)
 
 
+def stream_phase(sc, inputs, cams, offs, flagship, exact, dev, packed_kpf):
+    """The stream phase, in a temporary directory it removes: export the
+    orbit scene to disk (and a second scene of the same files with a
+    tight position limit), stream the flagship and the default path from
+    it, resume the flagship from a checkpoint, stream both scenes at
+    once, and time the streamed flagship. Returns the phase's record."""
+    root = tempfile.mkdtemp(prefix="bmfr_stream_")
+    try:
+        return _stream_phase(root, sc, inputs, cams, offs, flagship, exact,
+                             dev, packed_kpf)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _stream_phase(root, sc, inputs, cams, offs, flagship, exact, dev,
+                  packed_kpf):
+    rec = {}
+    free = shutil.disk_usage(root).free
+    raw = 4 * sc["noisy"].nbytes
+    print(f"[stream] {root}: {free} B free; IO library "
+          f"{native.library_path().name}")
+    require(free > 3 * raw, f"stream: {free} B free for {raw} B of frames")
+    t0 = time.perf_counter()
+    native.build()
+    rec["io_build_s"] = time.perf_counter() - t0
+    scene_dir = os.path.join(root, "orbit")
+    t0 = time.perf_counter()
+    export_scene(sc, scene_dir, **SCENE_LIMITS)
+    rec["export_s"] = time.perf_counter() - t0
+    exrs = sorted(f for f in os.listdir(scene_dir) if f.endswith(".exr"))
+    rec["exr_files"] = len(exrs)
+    rec["exr_bytes"] = sum(os.path.getsize(os.path.join(scene_dir, f))
+                           for f in exrs)
+    print(f"[stream] export_scene (ZIP, a thread per core): {len(exrs)} "
+          f"files, {raw} B of f32 frames, {rec['exr_bytes']} B written in "
+          f"{rec['export_s']:.2f} s (native build {rec['io_build_s']:.1f} s)")
+    # a second scene: the same frames, its own header, a tight limit
+    tight = os.path.join(root, "orbit-tight")
+    os.makedirs(tight)
+    for f in exrs:
+        os.symlink(os.path.join(scene_dir, f), os.path.join(tight, f))
+    write_camera_header(os.path.join(tight, "camera_matrices.h"),
+                        sc["camera_matrices"], sc["pixel_offsets"], 1e-8,
+                        SCENE_LIMITS["normal_limit_squared"])
+    scenes = discover_scenes(root)
+    require([(os.path.basename(s.path), s.frame_count, s.width, s.height)
+             for s in scenes] == [(n, FRAMES, WIDTH, HEIGHT) for n in
+                                  ("orbit", "orbit-tight")],
+            f"stream: discover_scenes found {scenes}")
+    t0 = time.perf_counter()
+    data = scenes[0].load_frames()
+    load_s = time.perf_counter() - t0
+    same = all(np.array_equal(data[k], sc[k]) for k in
+               ("noisy", "normals", "positions", "albedo", "camera_matrices",
+                "pixel_offsets"))
+    print(f"[stream] discover_scenes: 2 scenes; load_frames of {FRAMES} "
+          f"frames {load_s:.2f} s, bit-equal to the in-memory arrays: {same}")
+    require(same, "stream: load_frames differs from the in-memory scene")
+    del data
+
+    # ---- flagship and default path streamed, vs denoise_sequence ----
+    outs, refs = {}, {}
+    for label, cfg, counters, expected in (
+            ("flagship", flagship,
+             {"warp_blend": warp_blend,
+              "fit_reconstruct_cholesky": fit_reconstruct_cholesky},
+             {"warp_blend": FRAMES - 1, "fit_reconstruct_cholesky": FRAMES}),
+            ("default", exact,
+             {"fit_blocks_pallas": fit_blocks_pallas, "warp_rows": warp_rows},
+             {"fit_blocks_pallas": FRAMES, "warp_rows": 0})):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        outs[label] = bt.stream_scene(cfg, scenes[0],
+                                      chunk_frames=STREAM_CHUNK, device=dev)
+        first_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        refs[label] = bt.denoise_sequence(cfg, inputs, cams,
+                                          offs).cpu().numpy()
+        equal = bool(np.array_equal(outs[label], refs[label]))
+        err = float(np.abs(outs[label] - refs[label]).max())
+        print(f"[stream {label}] stream_scene chunks of {STREAM_CHUNK} "
+              f"(first run {first_s:.2f} s): launches {launches}; "
+              f"bit-equal to denoise_sequence: {equal} (max |diff| {err})")
+        require(launches == expected, f"stream {label}: launches {launches}, "
+                f"expected {expected}")
+        require(equal, f"stream {label}: differs from denoise_sequence by "
+                f"{err}")
+        rec[label] = dict(launches=launches, bit_equal=equal,
+                          first_run_s=first_s)
+
+    # ---- checkpoint: frames 0-7 on a TemporalState, save, load, 8-15 ----
+    step = bt.make_denoise_frame(flagship)
+    state = bt.TemporalState.initial(flagship, dev)
+    resumed = []
+    ckpt = os.path.join(root, "state.npz")
+    for t in range(FRAMES):
+        if t == FRAMES // 2:
+            bt.save_state(ckpt, state, t)
+            state, t_next = bt.load_state(ckpt)
+            require(t_next == t and state.out.device.type == "cuda",
+                    "checkpoint: frame or device")
+        state, res = step(state, frame_of(inputs, t), cams[max(t - 1, 0)],
+                          offs[t], t)
+        resumed.append(res.cpu().numpy())
+    equal = bool(np.array_equal(np.stack(resumed), refs["flagship"]))
+    print(f"[stream checkpoint] flagship saved after frame "
+          f"{FRAMES // 2 - 1} ({os.path.getsize(ckpt)} B), loaded on the "
+          f"card, frames {FRAMES // 2}-{FRAMES - 1} bit-equal to the "
+          f"uninterrupted run: {equal}")
+    require(equal, "checkpoint: the resumed run differs")
+    rec["checkpoint_bit_equal"] = equal
+
+    # ---- both scene directories at once on the one card ----
+    both = bt.stream_scenes(flagship, scenes, chunk_frames=STREAM_CHUNK,
+                            devices=[dev])
+    equal = bool(np.array_equal(both[0], outs["flagship"]))
+    diff = float(np.abs(both[1] - both[0]).max())
+    print(f"[stream scenes] stream_scenes over 2 directories, one card: "
+          f"scene 1 bit-equal to stream_scene: {equal}; scene 2 "
+          f"(position_limit_squared 1e-8) differs by {diff:.4f}")
+    require(equal and diff > 1e-3, "stream_scenes: per-scene results")
+    rec["scenes"] = dict(first_bit_equal=equal, second_max_diff=diff)
+
+    # ---- timing (the runs above were the warm pass) ----
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bt.stream_scene(flagship, scenes[0], chunk_frames=STREAM_CHUNK,
+                    device=dev, timings=timings)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ingest, compute = timings["ingest_s"], timings["compute_ms"]
+    decode = timings["decode_s"]
+    serial_s, overlap_s = sum(ingest) + sum(compute) / 1e3, max(
+        sum(ingest), sum(compute) / 1e3)
+    hidden = abs(wall_s - overlap_s) < abs(wall_s - serial_s)
+    steady = steady_ms(flagship, inputs, cams, offs, False)
+    st0, _ = step(bt.TemporalState.initial(flagship, dev),
+                  frame_of(inputs, 0), cams[0], offs[0], 0)
+
+    def temporal_run():
+        st = st0
+        for t in range(1, FRAMES):
+            st, _ = step(st, frame_of(inputs, t), cams[t - 1], offs[t], t)
+
+    profile = device_breakdown("flagship TemporalState carry", temporal_run,
+                               FRAMES - 1)
+    kpf = (profile or {}).get("kernels_per_frame")
+    print(f"[stream time] {gpu_line()}: flagship stream_scene {FRAMES} "
+          f"frames in chunks "
+          f"of {STREAM_CHUNK}: wall {wall_s * 1e3 / FRAMES:.4f} ms/frame; "
+          f"loader s/chunk " + ", ".join(f"{s:.4f}" for s in ingest)
+          + " (decode " + ", ".join(f"{s:.4f}" for s in decode) + ")"
+          + "; compute ms/chunk " + ", ".join(f"{m:.4f}" for m in compute)
+          + f"; ingest {sum(ingest):.4f} s + compute "
+          f"{sum(compute) / 1e3:.4f} s = {serial_s:.4f} s, max "
+          f"{overlap_s:.4f} s, wall {wall_s:.4f} s: closer to the "
+          + ("max (ingest overlapped)" if hidden else "sum (serial)")
+          + f"; in-memory steady {steady:.4f} ms/frame; device kernels per "
+          f"frame {kpf} on the TemporalState carry vs {packed_kpf} packed; "
+          f"max_memory_allocated {peak} B")
+    rec["timing"] = dict(
+        wall_ms_per_frame=wall_s * 1e3 / FRAMES, ingest_s_per_chunk=ingest,
+        decode_s_per_chunk=decode,
+        compute_ms_per_chunk=compute, chunk_frames=STREAM_CHUNK,
+        wall_s=wall_s, ingest_plus_compute_s=serial_s,
+        max_ingest_compute_s=overlap_s, ingest_hidden=hidden,
+        in_memory_steady_ms_per_frame=steady,
+        temporal_carry_kernels_per_frame=kpf,
+        packed_carry_kernels_per_frame=packed_kpf,
+        max_memory_allocated=peak, load_frames_s=load_s)
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke FAIL: no CUDA device")
@@ -630,6 +822,11 @@ def main():
         print(f"[launches] {label}: {after} device kernels per steady frame "
               f"with the noise hashed in the kernel; the torch noise field "
               f"took {saved} more per frame")
+
+    # ---- the stream phase: the scene from disk, streamed and resumed ----
+    paths["stream"] = stream_phase(
+        sc, inputs, cams, offs, flagship, exact, dev,
+        (paths["flagship"]["profile"] or {}).get("kernels_per_frame"))
 
     # ---- kernel E's path: gather_taps(mode="pallas") over the default
     # path's warped states (no pipeline configuration reaches kernel E) ----

@@ -17,7 +17,7 @@ from bmfr_tpu_torch.ops.fitter_pallas import (MAX_BUFFERS, MAX_SMEM,
 @pytest.mark.parametrize("fn", [
     bt.zero_state, bt.PackedState.initial, bt.TemporalState.initial,
     bt.frame_inputs_from_numpy, bt.packed_state_from_jax,
-    bt.temporal_state_from_jax,
+    bt.temporal_state_from_jax, bt.load_state,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"

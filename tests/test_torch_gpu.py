@@ -370,3 +370,99 @@ def test_reproject_on_card_matches_cpu(cuda):
                             offs[1].cpu())
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-6, atol=1e-5)
+
+
+def exported(tmp_path, H, W, frames, limits=(0.03, 0.5)):
+    """The orbit scene exported to ``tmp_path/<limits>`` in the TUNI
+    layout; returns (descriptor, the in-memory scene)."""
+    from bmfr_tpu_torch.io.dataset import probe_scene
+    from bmfr_tpu_torch.io.export import export_scene
+
+    sc = synthetic_sequence(width=W, height=H, frames=frames)
+    path = str(tmp_path / f"orbit-{limits[0]:g}")
+    export_scene(sc, path, *limits)
+    return probe_scene(path), sc
+
+
+def on_card(sc, dev):
+    return (bt.frame_inputs_from_numpy(sc["normals"], sc["positions"],
+                                       sc["noisy"], sc["albedo"], dev),
+            torch.from_numpy(sc["camera_matrices"]).to(dev),
+            torch.from_numpy(sc["pixel_offsets"]).to(dev))
+
+
+@pytest.mark.parametrize("variant", ["flagship", "default"])
+def test_stream_scene_on_card_equals_sequence(cuda, tmp_path, variant):
+    """A scene streamed from disk (5 frames, chunks of 2: a ragged last
+    chunk) equals denoise_sequence of the same frames bit for bit, and
+    launches the path's kernels once per frame."""
+    H, W, T = 64, 96, 5
+    cfg = scene_cfg(H, W)
+    counters = {"flagship": (warp_blend, fit_reconstruct_cholesky),
+                "default": (fit_blocks_pallas,)}[variant]
+    if variant == "default":
+        cfg = bt.BMFRConfig(image_width=W, image_height=H,
+                            position_limit_squared=0.03,
+                            normal_limit_squared=0.5)
+    sd, sc = exported(tmp_path, H, W, T)
+    for fn in counters:
+        fn.launches = 0
+    got = bt.stream_scene(cfg, sd, chunk_frames=2, device=cuda)
+    launches = [fn.launches for fn in counters]
+    assert launches == ([T - 1, T] if variant == "flagship" else [T])
+    want = bt.denoise_sequence(cfg, *on_card(sc, cuda)).cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_stream_scene_full_size_from_memory(cuda):
+    """The flagship at 1280x720 over 3 frames from an in-memory loader
+    (pageable arrays, pinned by the upload) equals denoise_sequence."""
+    H, W, T = 720, 1280, 3
+    cfg = scene_cfg(H, W)
+    sc = synthetic_sequence(width=W, height=H, frames=T)
+    keys = ("normals", "positions", "noisy", "albedo", "camera_matrices",
+            "pixel_offsets")
+    got = bt.stream_scene(cfg, loader=lambda fr: {k: sc[k][fr] for k in keys},
+                          frame_count=T, chunk_frames=2, device=cuda)
+    want = bt.denoise_sequence(cfg, *on_card(sc, cuda)).cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("variant", ["flagship", "default"])
+def test_load_state_on_card_resumes_bit_equal(cuda, tmp_path, variant):
+    H, W, T = 64, 96, 5
+    cfg = scene_cfg(H, W) if variant == "flagship" else bt.BMFRConfig(
+        image_width=W, image_height=H, position_limit_squared=0.03,
+        normal_limit_squared=0.5)
+    inputs, cams, offs = scene(H, W, cuda, frames=T)
+    want = bt.denoise_sequence(cfg, inputs, cams, offs).cpu().numpy()
+    step = bt.make_denoise_frame(cfg)
+    state, got = bt.TemporalState.initial(cfg, cuda), []
+    for t in range(T):
+        if t == 3:
+            bt.save_state(str(tmp_path / "s.npz"), state, t)
+            state, t0 = bt.load_state(str(tmp_path / "s.npz"))
+            assert t0 == 3 and state.spp.device.type == "cuda"
+        state, res = step(state, bt.FrameInputs(*(x[t] for x in inputs)),
+                          cams[max(t - 1, 0)], offs[t], t)
+        got.append(res.cpu().numpy())
+    np.testing.assert_array_equal(np.stack(got), want)
+
+
+def test_stream_scenes_two_streams_equal_single_runs(cuda, tmp_path):
+    """Two scenes at once on one card, each on its own stream pair (the
+    second with its own discard limit), equal their single runs bit for
+    bit: an upload read before its event, or a tensor reused while the
+    other stream reads it, would show here."""
+    H, W, T = 120, 200, 7
+    sd_a, _ = exported(tmp_path, H, W, T)
+    sd_b, _ = exported(tmp_path, H, W, T, limits=(1e-8, 0.5))
+    cfg = scene_cfg(H, W)
+    both = bt.stream_scenes(cfg, [sd_a, sd_b], chunk_frames=3,
+                            devices=[cuda])
+    single = [bt.stream_scene(cfg.replace(position_limit_squared=lim), sd,
+                              chunk_frames=3, device=cuda)
+              for lim, sd in ((0.03, sd_a), (1e-8, sd_b))]
+    for got, want in zip(both, single):
+        np.testing.assert_array_equal(got, want)
+    assert np.abs(single[0] - single[1]).max() > 1e-3
