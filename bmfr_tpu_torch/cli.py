@@ -13,7 +13,9 @@ the clean render when there is one, and write one PNG per frame:
 ``--mode frame`` runs the per-frame step, ``scan`` :func:`~bmfr_tpu_torch.
 pipeline.denoise.denoise_sequence` and ``stream`` the chunked streaming
 of :mod:`~bmfr_tpu_torch.pipeline.streaming` (with ``--scene``, straight
-from the directory, chunk by chunk). ``--device`` takes a card index, as
+from the directory, chunk by chunk); on a card each replays the compiled
+step (:mod:`~bmfr_tpu_torch.pipeline.graph`) for every frame after the
+first, as the JAX CLI jits both modes. ``--device`` takes a card index, as
 in the JAX package, or ``cpu``: the port runs on the card unless asked
 for the CPU, and a card index that is not there is an error.
 """

@@ -80,8 +80,8 @@ __global__ void __launch_bounds__(T, 4)
 fit_chol_kernel(const float* __restrict__ normals,
                 const float* __restrict__ positions,
                 const float* __restrict__ accum, float* __restrict__ out,
-                float* __restrict__ weights, int H, int W, int ox, int oy,
-                Noise nz) {
+                float* __restrict__ weights, int H, int W,
+                const int* __restrict__ frame_ptr, float amp) {
   __shared__ float raw[9 * BP];
   __shared__ float red[NW * NGP];
   __shared__ float mmw[NW * 16];
@@ -91,9 +91,12 @@ fit_chol_kernel(const float* __restrict__ normals,
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int64_t n = (int64_t)H * W;
+  const int frame = __ldg(frame_ptr);
+  const int2 jit = jitter_offset(frame, BE);
+  const Noise nz = frame_noise(frame, amp, BP, NBUF);
   // view cell tid + T k is image pixel (iy0 + NW k, ix) before the mirror
-  const int iy0 = (int)blockIdx.y * BE - BE / 2 + oy + warp;
-  const int ix = (int)blockIdx.x * BE - BE / 2 + ox + lane;
+  const int iy0 = (int)blockIdx.y * BE - BE / 2 + jit.y + warp;
+  const int ix = (int)blockIdx.x * BE - BE / 2 + jit.x + lane;
   const int sx = mirror(ix, W);
 
   // ---- 1. stage the raw planes and the block min/max ----
@@ -252,29 +255,28 @@ fit_chol_kernel(const float* __restrict__ normals,
 template <int M>
 int launch(const float* normals, const float* positions, const float* accum,
            float* out, float* weights, int H, int W, int blocks_x,
-           int blocks_y, int ox, int oy, Noise nz, cudaStream_t stream) {
+           int blocks_y, const int* frame, float amp, cudaStream_t stream) {
   const dim3 grid((unsigned)blocks_x, (unsigned)blocks_y);
   fit_chol_kernel<M><<<grid, T, 0, stream>>>(
-      normals, positions, accum, out, weights, H, W, ox, oy, nz);
+      normals, positions, accum, out, weights, H, W, frame, amp);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// mode: the tmp dtype, 0 f32, 1 f16, 2 bf16; noise_base, noise_amp: the
-// hash noise's frame term and amplitude (fitter_front.cuh)
+// frame: the frame number, an int on the device (its jitter and noise are
+// derived in the kernel, fitter_front.cuh); mode: the tmp dtype, 0 f32,
+// 1 f16, 2 bf16; noise_amp: the hash noise's amplitude
 extern "C" int bmfr_fit_reconstruct_cholesky(
     const float* normals, const float* positions, const float* accum,
     float* out, float* weights, int H, int W, int blocks_x, int blocks_y,
-    int ox, int oy, int mode, unsigned noise_base, float noise_amp,
-    cudaStream_t stream) {
-  const Noise nz{noise_base, noise_amp, BP};
+    const int* frame, int mode, float noise_amp, cudaStream_t stream) {
   if (mode == kF16)
     return launch<kF16>(normals, positions, accum, out, weights, H, W,
-                        blocks_x, blocks_y, ox, oy, nz, stream);
+                        blocks_x, blocks_y, frame, noise_amp, stream);
   if (mode == kBF16)
     return launch<kBF16>(normals, positions, accum, out, weights, H, W,
-                         blocks_x, blocks_y, ox, oy, nz, stream);
+                         blocks_x, blocks_y, frame, noise_amp, stream);
   return launch<kF32>(normals, positions, accum, out, weights, H, W,
-                      blocks_x, blocks_y, ox, oy, nz, stream);
+                      blocks_x, blocks_y, frame, noise_amp, stream);
 }

@@ -8,7 +8,8 @@
 //
 // Both direct kernels fit one 32x32 block of the jittered margins grid per
 // CTA (C: 256 threads, B: 128). A view cell (gy, gx) reads image pixel
-// (mirror(gy-16+oy, H), mirror(gx-16+ox, W)) -- the symmetric pad as
+// (mirror(gy-16+oy, H), mirror(gx-16+ox, W)), (ox, oy) the frame's jitter
+// (jitter_offset) -- the symmetric pad as
 // arithmetic, no padded copy -- for the 9 raw planes (normals, positions,
 // accumulated colour): a pixel's 9 values px[9]. Per pixel:
 //   scaled_store  the 6 stored scaled features, whose block min/max the
@@ -80,6 +81,35 @@ struct Noise {
   float amp;
   int bp;
 };
+
+// The frame number arrives as a device pointer (one load per thread, the
+// same word for every thread), not as a launch argument: the noise's frame
+// term and the block jitter are derived here, so one captured CUDA graph
+// serves every frame (bmfr_tpu_torch/pipeline/graph.py).
+//
+// The reference's block jitter table (x, y), by frame mod 16
+// (opencl/bmfr.cl:267-285; BLOCK_OFFSETS in bmfr_tpu_torch/geometry.py).
+static __constant__ int kBlockOffsets[16][2] = {
+    {-14, -14}, {4, -6},  {-8, 14},  {8, 0},    {-10, -8}, {2, 12},
+    {12, -12},  {-10, 0}, {12, 14},  {-8, -16}, {6, 6},    {-2, -2},
+    {6, -14},   {-16, 12}, {14, -4}, {-6, 4}};
+
+// Jitter (ox, oy) of frame `frame` for block edge be: the table scaled by
+// be / 32 with floor division (>> 5 on a signed int), as
+// blockify.jitter_offset scales it; frame & 15 is Python's frame % 16 for
+// negative frames too.
+__device__ __forceinline__ int2 jitter_offset(int frame, int be) {
+  const int k = frame & 15;
+  return make_int2((kBlockOffsets[k][0] * be) >> 5,
+                   (kBlockOffsets[k][1] * be) >> 5);
+}
+
+// The noise of frame `frame` (rng.noise_params): its seed's frame term
+// frame * buffers * bp mod 2^32, and the amplitude.
+__device__ __forceinline__ Noise frame_noise(int frame, float amp, int bp,
+                                             int buffers) {
+  return Noise{(uint32_t)frame * (uint32_t)(buffers * bp), amp, bp};
+}
 
 __device__ __forceinline__ uint32_t hash32(uint32_t a) {
   a = (a + 0x7ED55D16u) + (a << 12);

@@ -75,7 +75,7 @@ template <typename T, int M, int NB, bool HALF>
 __global__ void __launch_bounds__(THREADS, NB <= 13 && M == kF32 ? 2 : 1)
 fit_blocks_regs_kernel(const T* __restrict__ tmp, float* __restrict__ weights,
                        float* __restrict__ mins_maxs, int nb, int lo, int bp,
-                       int G, Noise nz) {
+                       int G, const int* __restrict__ frame, float amp) {
   constexpr int F = NB - 3, RS = 2 * NB;
   extern __shared__ float smem[];
   const Group g = make_group(G);
@@ -125,7 +125,10 @@ fit_blocks_regs_kernel(const T* __restrict__ tmp, float* __restrict__ weights,
     }
   }
 
-  // rescale + storage rounding, then the noise on the feature columns
+  // rescale + storage rounding, then the noise on the feature columns.
+  // The frame is read here, not at the start: held across the reduction
+  // its word spilled the f32 13-column instance (12 B stores, 52 B loads)
+  const Noise nz = frame_noise(__ldg(frame), amp, bp, NB);
   if (rows_in) {
 #pragma unroll
     for (int c = 0; c < F; ++c) {
@@ -157,14 +160,14 @@ fit_blocks_regs_kernel(const T* __restrict__ tmp, float* __restrict__ weights,
 
 // Register route of kernel D. mode: tmp dtype 0 f32, 1 f16, 2 bf16; B:
 // columns (4..16); group, blocks_per_cta, smem: the launch geometry;
-// noise_base, noise_amp: the hash noise (fitter_front.cuh).
+// frame: the frame number, an int on the device; noise_amp: the hash
+// noise's amplitude (fitter_front.cuh).
 extern "C" int bmfr_fit_blocks_registers(const void* tmp, float* weights,
                                          float* mins_maxs, int nb, int B,
                                          int lo, int bp, int mode, int group,
                                          int blocks_per_cta, int smem,
-                                         unsigned noise_base, float noise_amp,
+                                         const int* frame, float noise_amp,
                                          cudaStream_t stream) {
-  const Noise nz{noise_base, noise_amp, bp};
   const unsigned grid = (unsigned)((nb + blocks_per_cta - 1) / blocks_per_cta);
   return with_storage(mode, [&](auto tag, auto m) {
     using T = typename decltype(tag)::type;
@@ -173,10 +176,12 @@ extern "C" int bmfr_fit_blocks_registers(const void* tmp, float* weights,
       const unsigned threads = (unsigned)(blocks_per_cta * group);
       if (group == 16)
         fit_blocks_regs_kernel<T, Mv, NB, true><<<grid, threads, smem, stream>>>(
-            (const T*)tmp, weights, mins_maxs, nb, lo, bp, group, nz);
+            (const T*)tmp, weights, mins_maxs, nb, lo, bp, group, frame,
+            noise_amp);
       else
         fit_blocks_regs_kernel<T, Mv, NB, false><<<grid, threads, smem, stream>>>(
-            (const T*)tmp, weights, mins_maxs, nb, lo, bp, group, nz);
+            (const T*)tmp, weights, mins_maxs, nb, lo, bp, group, frame,
+            noise_amp);
       return (int)cudaGetLastError();
     });
   });

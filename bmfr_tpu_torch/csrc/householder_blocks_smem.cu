@@ -139,9 +139,10 @@ template <typename T, int M, int NB, int NREG>
 __global__ void __launch_bounds__(THREADS)
 fit_blocks_smem_kernel(const T* __restrict__ tmp, float* __restrict__ weights,
                        float* __restrict__ mins_maxs, int lo, int bp,
-                       Noise nz) {
+                       const int* __restrict__ frame, float amp) {
   using QR = SmemQR<M, NB, NREG>;
   constexpr int F = NB - 3, NS = QR::NS, RS = QR::RS;
+  const Noise nz = frame_noise(__ldg(frame), amp, bp, NB);
   extern __shared__ float smem[];
   float* data = smem;
   float* red = data + NS * bp;
@@ -223,13 +224,14 @@ fit_blocks_smem_kernel(const T* __restrict__ tmp, float* __restrict__ weights,
 
 template <typename T, int M, int NB, int NREG>
 int launch(const void* tmp, float* weights, float* mins_maxs, int nb, int lo,
-           int bp, int smem, Noise nz, cudaStream_t stream) {
+           int bp, int smem, const int* frame, float amp,
+           cudaStream_t stream) {
   static int granted = 48 * 1024;
   auto kernel = fit_blocks_smem_kernel<T, M, NB, NREG>;
   const int err = allow_smem(kernel, smem, &granted);
   if (err != 0) return err;
   kernel<<<(unsigned)nb, THREADS, smem, stream>>>(
-      (const T*)tmp, weights, mins_maxs, lo, bp, nz);
+      (const T*)tmp, weights, mins_maxs, lo, bp, frame, amp);
   return (int)cudaGetLastError();
 }
 
@@ -242,9 +244,8 @@ int launch(const void* tmp, float* weights, float* mins_maxs, int nb, int lo,
 extern "C" int bmfr_fit_blocks_shared(const void* tmp, float* weights,
                                       float* mins_maxs, int nb, int B, int lo,
                                       int bp, int mode, int reg_columns,
-                                      int smem, unsigned noise_base,
+                                      int smem, const int* frame,
                                       float noise_amp, cudaStream_t stream) {
-  const Noise nz{noise_base, noise_amp, bp};
   if (reg_columns != 0 && (bp != 4096 || B - reg_columns < 14))
     return (int)cudaErrorInvalidValue;
   return with_storage(mode, [&](auto tag, auto m) {
@@ -252,14 +253,15 @@ extern "C" int bmfr_fit_blocks_shared(const void* tmp, float* weights,
     constexpr int Mv = decltype(m)::value;
     if (reg_columns == 1 && B == 15)
       return launch<T, Mv, 15, 1>(tmp, weights, mins_maxs, nb, lo, bp, smem,
-                                  nz, stream);
+                                  frame, noise_amp, stream);
     if (reg_columns == 2 && B == 16)
       return launch<T, Mv, 16, 2>(tmp, weights, mins_maxs, nb, lo, bp, smem,
-                                  nz, stream);
+                                  frame, noise_amp, stream);
     if (reg_columns != 0) return (int)cudaErrorInvalidValue;
     return with_columns(B, [&](auto cols) {
       return launch<T, Mv, decltype(cols)::value, 0>(
-          tmp, weights, mins_maxs, nb, lo, bp, smem, nz, stream);
+          tmp, weights, mins_maxs, nb, lo, bp, smem, frame, noise_amp,
+          stream);
     });
   });
 }

@@ -37,7 +37,8 @@ fit_direct_kernel(const float* __restrict__ normals,
                   float* __restrict__ out,        // [3, H, W] or null
                   float* __restrict__ weights,    // [n_blocks, NF, 3]
                   float* __restrict__ mins_maxs,  // [n_blocks, NSC, 2] or null
-                  int H, int W, int ox, int oy, Noise nz) {
+                  int H, int W, const int* __restrict__ frame_ptr,
+                  float amp) {
   constexpr int RS = 2 * NBUF;
   __shared__ float red[2 * WARPS * RS];
   __shared__ float rows[2 * NBUF];
@@ -48,8 +49,11 @@ fit_direct_kernel(const float* __restrict__ normals,
   const int64_t b = (int64_t)blockIdx.y * gridDim.x + blockIdx.x;
   const int64_t n = (int64_t)H * W;
   const int e0 = 4 * tid;
-  const int gy = (int)blockIdx.y * BE + (e0 >> 5) - BE / 2 + oy;
-  const int gx0 = (int)blockIdx.x * BE + (e0 & 31) - BE / 2 + ox;
+  const int frame = __ldg(frame_ptr);
+  const int2 jit = jitter_offset(frame, BE);
+  const Noise nz = frame_noise(frame, amp, BP, NBUF);
+  const int gy = (int)blockIdx.y * BE + (e0 >> 5) - BE / 2 + jit.y;
+  const int gx0 = (int)blockIdx.x * BE + (e0 & 31) - BE / 2 + jit.x;
   const int64_t row = (int64_t)mirror(gy, H) * W;
 
   // the stored rows of the fit straight from the loads
@@ -134,27 +138,26 @@ fit_direct_kernel(const float* __restrict__ normals,
 template <int M>
 int launch(const float* normals, const float* positions, const float* accum,
            float* out, float* weights, float* mins_maxs, int H, int W,
-           int blocks_x, int blocks_y, int ox, int oy, Noise nz,
+           int blocks_x, int blocks_y, const int* frame, float amp,
            cudaStream_t stream) {
   const dim3 grid((unsigned)blocks_x, (unsigned)blocks_y);
   fit_direct_kernel<M><<<grid, THREADS, 0, stream>>>(
-      normals, positions, accum, out, weights, mins_maxs, H, W, ox, oy, nz);
+      normals, positions, accum, out, weights, mins_maxs, H, W, frame, amp);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// mode: tmp dtype 0 f32, 1 f16, 2 bf16; noise_base, noise_amp: the hash
-// noise (fitter_front.cuh).
+// frame: the frame number, an int on the device (fitter_front.cuh); mode:
+// tmp dtype 0 f32, 1 f16, 2 bf16; noise_amp: the hash noise's amplitude.
 extern "C" int bmfr_fit_direct_householder(
     const float* normals, const float* positions, const float* accum,
     float* out, float* weights, float* mins_maxs, int H, int W, int blocks_x,
-    int blocks_y, int ox, int oy, int mode, unsigned noise_base,
-    float noise_amp, cudaStream_t stream) {
-  const Noise nz{noise_base, noise_amp, BP};
+    int blocks_y, const int* frame, int mode, float noise_amp,
+    cudaStream_t stream) {
   return with_storage(mode, [&](auto, auto m) {
     return launch<decltype(m)::value>(normals, positions, accum, out, weights,
-                                      mins_maxs, H, W, blocks_x, blocks_y, ox,
-                                      oy, nz, stream);
+                                      mins_maxs, H, W, blocks_x, blocks_y,
+                                      frame, noise_amp, stream);
   });
 }

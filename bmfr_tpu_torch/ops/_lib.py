@@ -29,24 +29,26 @@ HEADERS = ("fitter_front.cuh", "householder.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry points and their argument types (pointers and the stream as
 #: c_void_p, so ctypes never cuts them to 32 bits)
 _SIGNATURES = {
     # src8, positions, normals, pfx, pfy, out, H, W, pos_lim, nrm_lim, stream
     "bmfr_warp_blend": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
     # normals, positions, accum, out, weights, H, W, blocks_x, blocks_y,
-    # ox, oy, mode, noise_base, noise_amp, stream
-    "bmfr_fit_reconstruct_cholesky": (_P,) * 5 + (_I,) * 7 + (_U, _F, _P),
+    # frame (a device int), mode, noise_amp, stream
+    "bmfr_fit_reconstruct_cholesky": (_P,) * 5 + (_I,) * 4 + (_P, _I, _F,
+                                                              _P),
     # normals, positions, accum, out, weights, mins_maxs, H, W, blocks_x,
-    # blocks_y, ox, oy, mode, noise_base, noise_amp, stream
-    "bmfr_fit_direct_householder": (_P,) * 6 + (_I,) * 7 + (_U, _F, _P),
+    # blocks_y, frame, mode, noise_amp, stream
+    "bmfr_fit_direct_householder": (_P,) * 6 + (_I,) * 4 + (_P, _I, _F,
+                                                            _P),
     # tmp, weights, mins_maxs, nb, B, lo, bp, mode, group, blocks_per_cta,
-    # smem, noise_base, noise_amp, stream
-    "bmfr_fit_blocks_registers": (_P,) * 3 + (_I,) * 8 + (_U, _F, _P),
+    # smem, frame, noise_amp, stream
+    "bmfr_fit_blocks_registers": (_P,) * 3 + (_I,) * 8 + (_P, _F, _P),
     # tmp, weights, mins_maxs, nb, B, lo, bp, mode, reg_columns, smem,
-    # noise_base, noise_amp, stream
-    "bmfr_fit_blocks_shared": (_P,) * 3 + (_I,) * 7 + (_U, _F, _P),
+    # frame, noise_amp, stream
+    "bmfr_fit_blocks_shared": (_P,) * 3 + (_I,) * 7 + (_P, _F, _P),
     # src, iy, ix, row0, row1, C, H, W, stream
     "bmfr_warp_rows": (_P,) * 5 + (_I,) * 3 + (_P,),
 }
@@ -128,12 +130,16 @@ def library():
 
 
 def launch(name, *args):
-    """Call C entry point ``name`` on the current stream; raise if the
+    """Call C entry point ``name`` on the current stream, inside a
+    profiler range of its name while a profiler records; raise if the
     launch reported a CUDA error."""
     import torch
 
+    from ..profiling import launch_range
+
     stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(), name)(*args, stream)
+    with launch_range(name):
+        err = getattr(library(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 

@@ -8,18 +8,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .frame import has_history
 
-def accumulate_filtered_data(cfg, filtered, planes, albedo, spp,
-                             frame: int):
+
+def accumulate_filtered_data(cfg, filtered, planes, albedo, spp, frame,
+                             history=None):
     """Returns (accumulated ``f32[3,H,W]``, tone_mapped ``f32[3,H,W]``).
 
     filtered: the fitter output; planes: the warp's 13 blend planes
     (K4 reads the accept-gated out sum 6:9 and the total weight 4);
-    spp: K1's new ``u8[H,W]``."""
+    spp: K1's new ``u8[H,W]``; ``frame``/``history``: whether the frame
+    reads history (:func:`~bmfr_tpu_torch.ops.frame.has_history`)."""
     prev_color = planes[6:9]
     total_weight = planes[4]
 
-    enabled = frame > 0 and not cfg.skip_second_accum
+    enabled = has_history(frame, history) and not cfg.skip_second_accum
     has_prev = (total_weight > 0.0) & enabled
     safe_tw = torch.where(total_weight > 0.0, total_weight, 1.0)
     prev_color = prev_color / safe_tw[None]

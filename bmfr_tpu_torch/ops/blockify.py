@@ -27,15 +27,41 @@ def storage_dtype(cfg):
     return STORAGE_DTYPES[cfg.tmp_data_dtype]
 
 
-def jitter_offset(frame: int, block_edge: int = 32):
+#: the jitter table on each device it was asked for, by (device,
+#: block_edge): built once (in an eager step, before any capture), then
+#: read by index on the device
+_TABLES = {}
+
+
+def jitter_offset(frame, block_edge: int = 32):
     """Block jitter ``(ox, oy)`` of a frame (opencl/bmfr.cl:315). For
     ``block_edge != 32`` the reference's table is scaled by
     ``block_edge / 32`` (floor), as ``blockify._scaled_offsets`` does, so
-    the jitter keeps inside the one-block margin."""
+    the jitter keeps inside the one-block margin.
+
+    ``frame``: a host int (returns ints) or a 0-d integer tensor (returns
+    0-d int64 tensors on its device, read from the table there without a
+    host round trip)."""
     table = (BLOCK_OFFSETS if block_edge == 32
              else (BLOCK_OFFSETS * block_edge) // 32)
+    if isinstance(frame, torch.Tensor):
+        key = (frame.device, block_edge)
+        if key not in _TABLES:
+            _TABLES[key] = torch.as_tensor(table, dtype=torch.int64,
+                                           device=frame.device)
+        # index_select, not [tensor]: indexing by a 0-d tensor reads it on
+        # the host
+        k = torch.remainder(frame.to(torch.int64), len(table)).reshape(1)
+        off = _TABLES[key].index_select(0, k)[0]
+        return off[0], off[1]
     ox, oy = table[int(frame) % len(table)]
     return int(ox), int(oy)
+
+
+def _window(start, size: int, device):
+    """Indices ``start + arange(size)`` (``start`` an int or a 0-d
+    tensor)."""
+    return torch.arange(size, device=device) + start
 
 
 def mirror_index(index, size: int):
@@ -48,17 +74,18 @@ def mirror_index(index, size: int):
     return torch.where(m < size, m, 2 * size - 1 - m)
 
 
-def jittered_view(cfg, planes, frame: int):
+def jittered_view(cfg, planes, frame):
     """``[C, H, W]`` planes -> the jittered margins-grid view
-    ``[C, mh, mw]`` (``blockify_view`` without the pad copy)."""
+    ``[C, mh, mw]`` (``blockify_view`` without the pad copy). ``frame``:
+    a host int or a 0-d integer tensor (:func:`jitter_offset`)."""
     H, W = planes.shape[-2:]
     half = cfg.block_edge // 2
     ox, oy = jitter_offset(frame, cfg.block_edge)
     dev = planes.device
-    rows = mirror_index(torch.arange(cfg.workset_with_margins_height,
-                                     device=dev) - half + oy, H)
-    cols = mirror_index(torch.arange(cfg.workset_with_margins_width,
-                                     device=dev) - half + ox, W)
+    rows = mirror_index(_window(oy - half, cfg.workset_with_margins_height,
+                                dev), H)
+    cols = mirror_index(_window(ox - half, cfg.workset_with_margins_width,
+                                dev), W)
     return planes[:, rows[:, None], cols[None, :]]
 
 
@@ -72,13 +99,13 @@ def view_to_blocks(cfg, view):
                                                  cfg.block_pixels)
 
 
-def blockify_planes(cfg, planes, frame: int):
+def blockify_planes(cfg, planes, frame):
     """``[C, H, W]`` planes -> ``[n_blocks, C, block_pixels]`` jittered
     blocks (``blockify.py:146-158``)."""
     return view_to_blocks(cfg, jittered_view(cfg, planes, frame))
 
 
-def unblockify_planes(cfg, blocks, frame: int):
+def unblockify_planes(cfg, blocks, frame):
     """Inverse of :func:`blockify_planes` restricted to the image window
     (``blockify.py:161-178``): ``[n_blocks, C, block_pixels]`` ->
     ``[C, H, W]``, where image pixel ``p`` reads margins-grid cell ``p +
@@ -90,9 +117,11 @@ def unblockify_planes(cfg, blocks, frame: int):
     view = blocks.reshape(cfg.blocks_y, cfg.blocks_x, C, be, be)
     view = view.permute(2, 0, 3, 1, 4).reshape(
         C, cfg.workset_with_margins_height, cfg.workset_with_margins_width)
+    # a gather, not a slice: the window's origin may be a tensor
     ox, oy = jitter_offset(frame, be)
-    return view[:, half - oy:half - oy + cfg.image_height,
-                half - ox:half - ox + cfg.image_width].contiguous()
+    rows = _window(half - oy, cfg.image_height, view.device)
+    cols = _window(half - ox, cfg.image_width, view.device)
+    return view[:, rows[:, None], cols[None, :]]
 
 
 def _feature_planes(cfg, normals, positions, accum_color):
@@ -107,7 +136,7 @@ def _feature_planes(cfg, normals, positions, accum_color):
     return planes
 
 
-def build_feature_blocks(cfg, normals, positions, accum_color, frame: int):
+def build_feature_blocks(cfg, normals, positions, accum_color, frame):
     """Feature-vector build + block store of K1 (``blockify.py:181-197``):
     ``[n_blocks, buffer_count, block_pixels]`` in the storage dtype."""
     blocks = blockify_planes(
@@ -115,7 +144,7 @@ def build_feature_blocks(cfg, normals, positions, accum_color, frame: int):
     return blocks.to(storage_dtype(cfg))
 
 
-def build_feature_view(cfg, normals, positions, accum_color, frame: int):
+def build_feature_view(cfg, normals, positions, accum_color, frame):
     """Like :func:`build_feature_blocks` but stopping at the jittered
     image-layout view, rounded through the storage dtype and returned in
     f32 (``blockify.py:200-213``)."""

@@ -159,7 +159,7 @@ def cholesky_weights(cfg, data):
     return cholesky_solve(gram(data, F), F)
 
 
-def fit_blocks_reference(cfg, tmp_blocks, frame: int):
+def fit_blocks_reference(cfg, tmp_blocks, frame):
     """The plain fitter: scale -> storage round -> noise -> solve with
     ``cfg.solver`` (``fitter.py:187-199``). Returns (weights f32
     ``[n_blocks, F, 3]``, mins_maxs f32 ``[n_blocks, n_scaled, 2]``)."""
@@ -174,7 +174,7 @@ def fit_blocks_reference(cfg, tmp_blocks, frame: int):
     return householder_qr_weights(cfg, data), mins_maxs
 
 
-def fit_blocks(cfg, tmp_blocks, frame: int, impl=None):
+def fit_blocks(cfg, tmp_blocks, frame, impl=None):
     """Full fitter stage (``fitter.py:152-199``). tmp_blocks: ``[n_blocks,
     buffer_count, block_pixels]`` in the storage dtype, from
     :func:`~bmfr_tpu_torch.ops.blockify.build_feature_blocks`. Returns

@@ -18,11 +18,15 @@ accumulated colour (:func:`blockify.jittered_view`); build the 10
 features and 3 colours with the K1 store contract (NaN -> 0, f16 clamp,
 storage rounding); rescale the 6 scaled features by the block min/max
 (denominator ``rmax - rmin`` only where ``|rmax - rmin| > 1``) and round
-again; add the hash noise, which the kernels compute themselves from
-:func:`~bmfr_tpu_torch.rng.noise_params`. The reconstruction ``max(sum_f w_f basis_f,
-0)`` uses the basis built from the pre-rounding, unsanitized, noise-free
-f32 features and writes the image directly, which replaces the JAX
-pipeline's inverse-jitter slice (``pipeline/denoise.py:218-225``).
+again; add the hash noise, which the kernels compute themselves
+(:func:`~bmfr_tpu_torch.rng.noise_params`). The kernels read the frame
+number from the card (:func:`~bmfr_tpu_torch.ops.frame.frame_tensor`)
+and derive its jitter and noise there, so ``frame`` may be a host int or
+a 0-d int32 tensor on the planes' card. The reconstruction ``max(sum_f
+w_f basis_f, 0)`` uses the basis built from the pre-rounding,
+unsanitized, noise-free f32 features and writes the image directly,
+which replaces the JAX pipeline's inverse-jitter slice
+(``pipeline/denoise.py:218-225``).
 
 The plain versions are the block path the JAX tests hold the direct
 kernels to (``tests/test_fitter_direct.py``): ``build_feature_blocks``
@@ -35,11 +39,12 @@ from __future__ import annotations
 import torch
 
 from ..config import DEFAULT_FEATURES
-from ..rng import noise_params
+from ..rng import noise_amp
 from . import _lib
-from .blockify import build_feature_blocks, jitter_offset
+from .blockify import build_feature_blocks
 from .fitter import fit_blocks_reference
 from .fitter_pallas import MODE
+from .frame import frame_tensor
 from .weighted_sum import weighted_sum_image
 
 BLOCK_EDGE = 32
@@ -69,7 +74,8 @@ def _reconstruct_plain(cfg, solver, normals, positions, accum, frame):
 
 
 def _launch_direct(name, cfg, normals, positions, accum, frame, *outs):
-    """Check the planes and launch direct kernel ``name`` on them, writing
+    """Check the planes and launch direct kernel ``name`` on them at frame
+    ``frame`` (a host int or a 0-d int32 tensor on the card), writing
     into ``outs`` (tensors, or None for an output the kernel skips)."""
     _check_cfg(cfg)
     dev = normals.device
@@ -77,13 +83,12 @@ def _launch_direct(name, cfg, normals, positions, accum, frame, *outs):
     for t, label in ((normals, "normals"), (positions, "positions"),
                      (accum, "accum")):
         _lib.check_tensor(t, label, torch.float32, (3, H, W), dev)
-    base, amp = noise_params(frame, cfg.block_pixels, cfg.buffer_count,
-                             cfg.noise_amount)
-    ox, oy = jitter_offset(frame)
+    ft = frame_tensor(frame, dev)
     ptr = [0 if t is None else t.data_ptr() for t in outs]
     _lib.launch(name, normals.data_ptr(), positions.data_ptr(),
                 accum.data_ptr(), *ptr, H, W, cfg.blocks_x, cfg.blocks_y,
-                ox, oy, MODE[cfg.tmp_data_dtype], base, amp)
+                ft.data_ptr(), MODE[cfg.tmp_data_dtype],
+                noise_amp(cfg.noise_amount))
 
 
 def _device(fn_name, t):

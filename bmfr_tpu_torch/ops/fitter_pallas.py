@@ -20,10 +20,11 @@ from typing import NamedTuple
 
 import torch
 
-from ..rng import noise_params
+from ..rng import noise_amp
 from . import _lib
 from .blockify import storage_dtype
 from .fitter import fit_blocks_reference
+from .frame import frame_tensor
 
 #: storage dtype -> the kernels' tmp-dtype / rounding-mode code
 MODE = {"float32": 0, "float16": 1, "bfloat16": 2}
@@ -89,21 +90,22 @@ def launch_geometry(block_edge: int, columns: int) -> Geometry:
     raise ValueError(f"{columns} columns of {bp} pixels do not fit kernel D")
 
 
-def fit_blocks_pallas_reference(cfg, tmp_blocks, frame: int):
+def fit_blocks_pallas_reference(cfg, tmp_blocks, frame):
     """Plain PyTorch version of :func:`fit_blocks_pallas`."""
     return fit_blocks_reference(cfg.replace(solver="householder"),
                                 tmp_blocks, frame)
 
 
-def fit_blocks_pallas(cfg, tmp_blocks, frame: int):
+def fit_blocks_pallas(cfg, tmp_blocks, frame):
     """Householder fit of every block (the JAX ``fit_blocks_pallas``'s
     signature and outputs): tmp_blocks ``[n_blocks, buffer_count,
     block_pixels]`` in the storage dtype -> (weights f32 ``[n_blocks, F,
     3]``, mins_maxs f32 ``[n_blocks, n_scaled, 2]``).
 
-    On a CUDA tensor this launches the kernel, which hashes the noise
-    itself; on a CPU tensor it runs :func:`fit_blocks_pallas_reference`.
-    Any other device raises.
+    On a CUDA tensor this launches the kernel, which reads ``frame`` (a
+    host int or a 0-d int32 tensor on the card) there and hashes the
+    noise itself; on a CPU tensor it runs
+    :func:`fit_blocks_pallas_reference`. Any other device raises.
     """
     dev = tmp_blocks.device
     if dev.type == "cpu":
@@ -118,7 +120,8 @@ def fit_blocks_pallas(cfg, tmp_blocks, frame: int):
         raise ValueError("fit_blocks_pallas: tmp_blocks must be 16-byte "
                          "aligned (vector loads)")
     geo = launch_geometry(cfg.block_edge, B)
-    base, amp = noise_params(frame, bp, B, cfg.noise_amount)
+    ft = frame_tensor(frame, dev)
+    amp = noise_amp(cfg.noise_amount)
     weights = torch.empty((nb, F, 3), dtype=torch.float32, device=dev)
     mins_maxs = torch.empty((nb, F - lo, 2), dtype=torch.float32,
                             device=dev)
@@ -126,10 +129,10 @@ def fit_blocks_pallas(cfg, tmp_blocks, frame: int):
             nb, B, lo, bp, MODE[cfg.tmp_data_dtype])
     if geo.route == "registers":
         _lib.launch("bmfr_fit_blocks_registers", *ptrs, geo.group,
-                    geo.blocks_per_cta, geo.smem_bytes, base, amp)
+                    geo.blocks_per_cta, geo.smem_bytes, ft.data_ptr(), amp)
     else:
         _lib.launch("bmfr_fit_blocks_shared", *ptrs, geo.reg_columns,
-                    geo.smem_bytes, base, amp)
+                    geo.smem_bytes, ft.data_ptr(), amp)
     fit_blocks_pallas.launches += 1
     return weights, mins_maxs
 

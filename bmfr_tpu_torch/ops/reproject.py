@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .frame import has_history
+
 
 def reproject_coords(cfg, positions, prev_cam, pixel_offset):
     """Reprojected previous-frame coordinates for every pixel
@@ -32,21 +34,24 @@ def reproject_coords(cfg, positions, prev_cam, pixel_offset):
     return pfx, pfy
 
 
-def accumulate_noisy_data(cfg, noisy, pfx, pfy, planes, frame: int):
+def accumulate_noisy_data(cfg, noisy, pfx, pfy, planes, frame,
+                          history=None):
     """First temporal accumulation from the warp's blend planes
     (``reproject.py:71-77, :116-147``).
 
     noisy: current f32 ``[3, H, W]``; pfx/pfy: :func:`reproject_coords`;
     planes: the 13 blend planes (all zero at frame 0, which has no
-    history). Returns dict with ``accum f32[3,H,W]``, ``spp u8[H,W]``,
-    ``prev_pixels f32[2,H,W]``, ``accept u8[H,W]``.
+    history). ``frame``/``history``: whether the frame reads history
+    (:func:`~bmfr_tpu_torch.ops.frame.has_history`). Returns dict with
+    ``accum f32[3,H,W]``, ``spp u8[H,W]``, ``prev_pixels f32[2,H,W]``,
+    ``accept u8[H,W]``.
     """
     H, W = noisy.shape[-2:]
     dev = noisy.device
     prev_color = planes[0:3]
     sample_spp = planes[3]
     total_weight = planes[4]
-    not_first = frame > 0
+    not_first = has_history(frame, history)
 
     has_prev = (total_weight > 0.0) & not_first
     safe_tw = torch.where(total_weight > 0.0, total_weight, 1.0)

@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from ..color import rgb_to_ycocg, ycocg_to_rgb
+from .frame import has_history
 from .gather import floor_int
 
 
@@ -20,13 +21,15 @@ def _max3x3(x, kernel):
     return F.max_pool2d(x[None], kernel, stride=1, padding=pad)[0]
 
 
-def taa(cfg, prev_pixels, new_frame, planes, frame: int):
+def taa(cfg, prev_pixels, new_frame, planes, frame, history=None):
     """new_frame: tone-mapped K4 output ``f32[3,H,W]``; prev_pixels: K1's
     reprojection map ``f32[2,H,W]``; planes: the warp's blend planes (K5
-    reads the border-masked result sum 9:12 and its weight 12). Returns
+    reads the border-masked result sum 9:12 and its weight 12);
+    ``frame``/``history``: whether the frame reads history
+    (:func:`~bmfr_tpu_torch.ops.frame.has_history`). Returns
     ``f32[3,H,W]``."""
     # early-out: first frame (opencl/bmfr.cl:884-890) or the bypass
-    if frame == 0 or cfg.skip_taa:
+    if not has_history(frame, history) or cfg.skip_taa:
         return new_frame
     H, W = new_frame.shape[-2:]
 

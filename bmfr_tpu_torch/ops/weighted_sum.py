@@ -11,7 +11,7 @@ from .fitter import highest_precision, scale_with_mins_maxs
 
 
 def weighted_sum(cfg, weights, mins_maxs, normals, positions, noisy,
-                 frame: int, feature_blocks=None):
+                 frame, feature_blocks=None):
     """Reconstruct the filtered image in the block layout
     (``weighted_sum.py:27-67``). weights f32 ``[n_blocks, F, 3]``;
     mins_maxs f32 ``[n_blocks, n_sc, 2]``; normals/positions/noisy f32
@@ -44,11 +44,12 @@ def weighted_sum(cfg, weights, mins_maxs, normals, positions, noisy,
 
 
 def weighted_sum_image(cfg, weights, mins_maxs, normals, positions, noisy,
-                       frame: int):
+                       frame):
     """Image-space reconstruction (``weighted_sum.py:70-111``): per-pixel
     feature evaluation + rescale + dot with the pixel's block weights,
-    the block lookup written as a block-grid upsample + inverse-jitter
-    slice (opencl/bmfr.cl:718-747)."""
+    the block lookup written as a gather by each pixel's block under the
+    inverse jitter (opencl/bmfr.cl:718-747). ``frame``: a host int or a
+    0-d integer tensor."""
     if cfg.skip_fitting:
         return noisy
     H, W = cfg.image_height, cfg.image_width
@@ -58,12 +59,19 @@ def weighted_sum_image(cfg, weights, mins_maxs, normals, positions, noisy,
     lo = cfg.features_not_scaled_count
     nby, nbx = cfg.blocks_y, cfg.blocks_x
     ox, oy = jitter_offset(frame, be)
+    dev = normals.device
+    # image pixel (y, x) lies in block (by[y], bx[x]) of the jittered grid
+    by = torch.div(torch.arange(H, device=dev) + (half - oy), be,
+                   rounding_mode="floor")
+    bx = torch.div(torch.arange(W, device=dev) + (half - ox), be,
+                   rounding_mode="floor")
 
     def upsample(block_vals):
-        """[n_blocks, K] -> per-pixel [K, H, W] via the inverse jitter."""
+        """[n_blocks, K] -> per-pixel [K, H, W] via the inverse jitter: a
+        gather by block row and column (the window's origin may be a
+        tensor)."""
         g = block_vals.reshape(nby, nbx, -1).permute(2, 0, 1)
-        g = g.repeat_interleave(be, dim=1).repeat_interleave(be, dim=2)
-        return g[:, half - oy:half - oy + H, half - ox:half - ox + W]
+        return g[:, by[:, None], bx[None, :]]
 
     feats = evaluate_features(cfg.all_features, normals, positions)
     mm = upsample(mins_maxs.reshape(cfg.n_blocks, (F - lo) * 2))

@@ -1,0 +1,299 @@
+"""Per-stage profile of the frame: the reference's per-kernel report.
+
+Port of :mod:`bmfr_tpu.profile_stages`. The reference times each of its
+five kernels per frame with events (opencl/bmfr.cpp:386-412, :489-517).
+Here, on a steady mid-sequence transition of the synthetic orbit scene
+(frame 4, after four eager frames built the state):
+
+- the default report times each stage of
+  :func:`~bmfr_tpu_torch.pipeline.denoise.denoise_frame` standalone
+  (``--reps`` calls, the card synchronized around each: launch overhead
+  included, so the rows do not sum to the frame), plus the full frame,
+  eager and compiled (:class:`~bmfr_tpu_torch.pipeline.graph.
+  CompiledStep`, inputs copied in and the graph replayed);
+- ``--trace`` (the counterpart of ``--xplane``) runs ``--reps`` eager
+  steady frames under ``torch.profiler`` and gives each stage the device
+  time of the kernels launched inside its range (:func:`~bmfr_tpu_torch.
+  profiling.stage`, the JAX package's scope names), plus the kernels
+  outside every range ``(unattributed)`` and the total: these rows sum to
+  the frame's device time. On the CPU there is no device, and the rows
+  are the operators' host time.
+
+    python -m bmfr_tpu_torch.profile_stages                  # the default path
+    python -m bmfr_tpu_torch.profile_stages --trace --warp-mode pallas \\
+        --fitter-impl pallas_direct --solver cholesky --residual-dtype bfloat16
+    python -m bmfr_tpu_torch.profile_stages --device cpu --width 64 --height 48
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from collections import Counter
+
+import torch
+
+from .config import BMFRConfig
+from .io.fixtures import synthetic_sequence
+from .ops.accumulate import accumulate_filtered_data
+from .ops.blockify import build_feature_blocks
+from .ops.fitter import fit_blocks
+from .ops.reproject import accumulate_noisy_data, reproject_coords
+from .ops.taa import taa
+from .ops.warp import pack_pairs_bf16
+from .ops.weighted_sum import weighted_sum
+from .pipeline import denoise
+from .pipeline.denoise import (FrameInputs, PackedState, denoise_frame,
+                               frame_inputs_from_numpy, zero_state)
+from .pipeline.graph import CompiledStep
+from .profiling import (STAGES, ProfilingInfo, device_events, print_report,
+                        synchronize)
+
+#: the steady frame profiled (frame 0 -> 1 of the scene is a camera
+#: jump: it is not the typical frame)
+FRAME = 4
+
+
+def _device_arg(text):
+    if text in ("cpu", "cuda"):
+        return torch.device(text)
+    return torch.device("cuda", int(text))
+
+
+def _build_argparser():
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--width", type=int, default=1280)
+    p.add_argument("--height", type=int, default=720)
+    p.add_argument("--reps", type=int, default=5)
+    p.add_argument("--device", type=_device_arg, default="cuda",
+                   help="'cuda' (the current card), a card index or 'cpu'")
+    p.add_argument("--warp-mode", default="float32",
+                   choices=["float32", "packed_bf16", "packed_x_bf16",
+                            "pallas"])
+    p.add_argument("--fitter-impl", default="auto",
+                   choices=["auto", "xla", "pallas", "pallas_direct"])
+    p.add_argument("--solver", default="householder",
+                   choices=["householder", "cholesky"])
+    p.add_argument("--tmp-dtype", default="float32",
+                   choices=["float32", "float16", "bfloat16"])
+    p.add_argument("--residual-dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--trace", action="store_true",
+                   help="per-stage device ms from one torch.profiler pass "
+                        "of the eager steady step (sums to the frame)")
+    return p
+
+
+def steady_setup(cfg, device):
+    """``(state, inputs, prev_cam, offset)`` of frame :data:`FRAME` of the
+    orbit scene, the state from eager frames 0..FRAME-1."""
+    sc = synthetic_sequence(width=cfg.image_width, height=cfg.image_height,
+                            frames=FRAME + 1)
+    seq = frame_inputs_from_numpy(sc["normals"], sc["positions"],
+                                  sc["noisy"], sc["albedo"], device)
+    cams = torch.from_numpy(sc["camera_matrices"]).to(device)
+    offs = torch.from_numpy(sc["pixel_offsets"]).to(device)
+    state = zero_state(cfg, device)
+    for t in range(FRAME):
+        state, _ = denoise_frame(cfg, state,
+                                 FrameInputs(*(x[t] for x in seq)),
+                                 cams[max(t - 1, 0)], offs[t], t)
+    return (state, FrameInputs(*(x[FRAME] for x in seq)), cams[FRAME - 1],
+            offs[FRAME])
+
+
+def _timed(label, fn, reps, device, note=""):
+    """``fn()`` once to warm, then ``reps`` calls each between two
+    synchronizations; returns (the row, fn's last output)."""
+    out = fn()
+    info = ProfilingInfo(label + note)
+    for _ in range(reps):
+        synchronize(device)
+        t0 = time.perf_counter()
+        out = fn()
+        synchronize(device)
+        info.append((time.perf_counter() - t0) * 1e3)
+    return info, out
+
+
+def stage_report(cfg, state, inputs, cam, off, reps, device):
+    """The standalone stage rows and the full frame, eager and compiled.
+    Returns the rows."""
+    f = FRAME
+    direct = cfg.fitter_impl == "pallas_direct"
+    rows = []
+
+    def run(name, fn, note=""):
+        row, out = _timed(name, fn, reps, device, note)
+        rows.append(row)
+        return out
+
+    def idle(name, why):
+        rows.append(ProfilingInfo(f"{name} ({why})"))
+
+    def warp():
+        pfx, pfy = reproject_coords(cfg, inputs.positions, cam, off)
+        return pfx, pfy, denoise._warp_planes(cfg, state, inputs, pfx, pfy,
+                                              True, False)[0]
+
+    pfx, pfy, planes = run("warp_taps", warp)
+    k1 = run("k1_accumulate_noisy", lambda: accumulate_noisy_data(
+        cfg, inputs.noisy, pfx, pfy, planes, f))
+    if direct:
+        idle("k2_blockify", "in the fitter kernel on this path")
+        filtered = run("k2_fitter", lambda: denoise._filter(
+            cfg, inputs, k1["accum"], f, False)[0])
+        idle("k3_weighted_sum", "in the fitter kernel on this path")
+    else:
+        tmp = run("k2_blockify", lambda: build_feature_blocks(
+            cfg, inputs.normals, inputs.positions, k1["accum"], f))
+        w, mm = run("k2_fitter", lambda: fit_blocks(cfg, tmp, f))
+        filtered = run("k3_weighted_sum", lambda: weighted_sum(
+            cfg, w, mm, inputs.normals, inputs.positions, k1["accum"], f,
+            feature_blocks=tmp))
+    out, tone = run("k4_accumulate_filtered", lambda: accumulate_filtered_data(
+        cfg, filtered, planes, inputs.albedo, k1["spp"], f))
+    result = run("k5_taa", lambda: taa(cfg, k1["prev_pixels"], tone, planes,
+                                       f))
+    if isinstance(state, PackedState):
+        scratch = torch.empty_like(state.src8)
+
+        def pack():
+            pack_pairs_bf16([*inputs.positions, *inputs.normals],
+                            out=scratch[0:3])
+            pack_pairs_bf16([*k1["accum"], k1["spp"].float()],
+                            out=scratch[3:5])
+            pack_pairs_bf16([*out, *result], out=scratch[5:8])
+
+        run("state_pack", pack)
+    else:
+        idle("state_pack", "no pack: the state is this frame's planes")
+
+    eager_state = (PackedState(state.src8.clone())
+                   if isinstance(state, PackedState) else state)
+    run("full frame, eager", lambda: denoise_frame(
+        cfg, eager_state, inputs, cam, off, f))
+    if device.type == "cuda":
+        compiled = CompiledStep(cfg)
+        carry = [compiled.run(state, inputs, cam, off, f)[0]]  # the capture
+
+        def replay():
+            carry[0], outputs = compiled.run(carry[0], inputs, cam, off, f)
+            return outputs["result"]
+
+        capture_s = compiled.capture_seconds[
+            (type(state).__name__, str(device))]
+        run("full frame, compiled (CUDA graph)", replay,
+            f" [capture {capture_s:.3f} s]")
+    else:
+        idle("full frame, compiled (CUDA graph)", "needs a card")
+    return rows
+
+
+def _runtime_call(name):
+    """A CUDA runtime or driver call's event (``cudaLaunchKernel``,
+    ``cuLaunchKernel``, ...): its id is the runtime's correlation id,
+    which may equal an operator's, and the profiler then lists that
+    operator's kernels under it too."""
+    return name.startswith("cuda") or (name.startswith("cu")
+                                       and name[2:3].isupper())
+
+
+def _stage_of(event):
+    while event is not None:
+        if event.name in STAGES:
+            return event.name
+        event = event.cpu_parent
+    return None
+
+
+def trace_report(cfg, state, inputs, cam, off, reps, device):
+    """Per-stage device ms per frame from one ``torch.profiler`` pass of
+    ``reps`` eager steady frames; returns ``(per_stage, unattributed,
+    total)`` in ms per frame. On the CPU, the operators' host time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = device.type == "cuda"
+    if isinstance(state, PackedState):
+        state = PackedState(state.src8.clone())
+    denoise_frame(cfg, state, inputs, cam, off, FRAME)       # warm
+    synchronize(device)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        for _ in range(reps):
+            denoise_frame(cfg, state, inputs, cam, off, FRAME)
+        synchronize(device)
+    events = prof.events()
+    per = dict.fromkeys(STAGES, 0.0)
+    named = Counter()
+    if cuda:
+        for e in events:
+            s = (_stage_of(e) if e.kernels and not _runtime_call(e.name)
+                 else None)
+            for k in e.kernels:
+                # a range's own span on the device timeline is no work
+                if s is not None and k.name not in STAGES:
+                    per[s] += k.duration
+                    named[k.name] += 1
+        work = device_events(events)
+        total = sum(e.time_range.elapsed_us() for e in work)
+        loose = Counter(e.name for e in work) - named
+        unit = "device"
+    else:
+        ops = [e for e in events if e.name not in STAGES]
+        for e in ops:
+            s = _stage_of(e)
+            if s is not None:
+                per[s] += e.self_cpu_time_total
+        total = sum(e.self_cpu_time_total for e in ops)
+        loose = Counter()
+        unit = "host (CPU run: no device)"
+    other = total - sum(per.values())
+    scale = 1e-3 / reps
+    print(f"Per-stage {unit} time over {reps} frames (torch.profiler, "
+          f"ms/frame):")
+    print(f"{'stage':<40}{'ms/frame':>12}{'share':>9}")
+    print("-" * 61)
+    for name in STAGES + ("(unattributed)", "total"):
+        us = {"(unattributed)": other, "total": total}.get(name,
+                                                           per.get(name))
+        share = 100.0 * us / total if total else 0.0
+        print(f"{name:<40}{us * scale:>12.4f}{share:>8.1f}%")
+    for name, n in loose.most_common(5):
+        print(f"  unattributed kernel x{n / reps:g}/frame: {name[:80]}")
+    return ({k: v * scale for k, v in per.items()}, other * scale,
+            total * scale)
+
+
+def main(argv=None):
+    args = _build_argparser().parse_args(argv)
+    device = args.device
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("no CUDA device: pass --device cpu")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_device(device)
+    cfg = BMFRConfig(image_width=args.width, image_height=args.height,
+                     position_limit_squared=0.03, normal_limit_squared=0.5,
+                     warp_mode=args.warp_mode, fitter_impl=args.fitter_impl,
+                     solver=args.solver, tmp_data_dtype=args.tmp_dtype,
+                     residual_dtype=args.residual_dtype).validate()
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print(f"Per-stage profile at {args.width}x{args.height} on {name}: "
+          f"warp_mode={cfg.warp_mode} fitter_impl={cfg.fitter_impl} "
+          f"solver={cfg.solver} tmp={cfg.tmp_data_dtype} "
+          f"residual={cfg.residual_dtype}, frame {FRAME} of the orbit scene")
+    setup = steady_setup(cfg, device)
+    if args.trace:
+        trace_report(cfg, *setup, args.reps, device)
+        return 0
+    print("(standalone stages, synchronized around each call: the rows do "
+          "not sum to the frame; the full-frame rows are the frame)")
+    print_report(stage_report(cfg, *setup, args.reps, device))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

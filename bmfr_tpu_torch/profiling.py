@@ -6,8 +6,11 @@ opencl/bmfr.cpp:489-517) and ``CPUTimer`` (CLUtils.hpp:371-431). PyTorch
 returns before the card has run what it launched, so
 :func:`device_timer` synchronizes the card before and after the timed
 work, the counterpart of the JAX package's readback fence (``force``).
-Kernel-level device times come from ``torch.profiler`` (``chip_smoke.py``);
-there is no xplane ``trace`` here.
+Kernel-level device times come from ``torch.profiler`` (``chip_smoke.py``,
+:mod:`~bmfr_tpu_torch.profile_stages`); there is no xplane ``trace``
+here. :func:`stage` marks a stage of the frame as a profiler range under
+the JAX package's scope name, so a trace groups each kernel under its
+stage.
 """
 
 from __future__ import annotations
@@ -17,6 +20,57 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+#: The stages of :func:`~bmfr_tpu_torch.pipeline.denoise.denoise_frame`,
+#: in frame order, under the JAX package's scope names
+#: (``bmfr_tpu/xplane.py`` ``STAGE_SCOPES``, less the TPU warp's own
+#: sub-scopes: the GPU warp is one kernel, or one gather, inside
+#: ``warp_taps``).
+STAGES = ("warp_taps", "k1_accumulate_noisy", "k2_blockify", "k2_fitter",
+          "k3_weighted_sum", "k4_accumulate_filtered", "k5_taa",
+          "state_pack")
+
+_NO_RANGE = contextlib.nullcontext()
+#: an operator-scope range (``torch.profiler.record_function`` makes a
+#: user-scope one)
+_OP_RANGE = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+
+
+def _recording():
+    return getattr(_autograd_profiler, "_is_profiler_enabled", True)
+
+
+def device_events(events):
+    """The device's own work in a ``torch.profiler`` event list (kernels,
+    copies, fills): CUDA events less the spans that mirror a profiler
+    range on the device's timeline (those of :data:`STAGES` among
+    them)."""
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in STAGES]
+
+
+def stage(name):
+    """A ``torch.profiler.record_function`` range named ``name`` (one of
+    :data:`STAGES`) while a profiler records, else a no-op: a range costs
+    microseconds of host time per frame even with no profiler."""
+    if _recording():
+        return torch.profiler.record_function(name)
+    return _NO_RANGE
+
+
+def launch_range(name):
+    """An operator-scope range named ``name`` around a kernel launched
+    outside PyTorch (the kernels' C entry points) while a profiler
+    records, else a no-op. The profiler links a kernel to the operator
+    range it was launched in, as it links PyTorch's kernels to their
+    operators, and from there to the :func:`stage` around it; it links
+    no kernel to a user-scope range."""
+    if _OP_RANGE is not None and _recording():
+        return _OP_RANGE(name)
+    return _NO_RANGE
 
 
 class CPUTimer:

@@ -29,22 +29,34 @@ def hash_uniform(a):
     return a.to(torch.float32) / float(np.float32(_M32))
 
 
-def noise_params(frame_number: int, block_pixels: int, buffer_count: int,
+def noise_amp(noise_amount: float) -> float:
+    """The noise amplitude ``float32(noise_amount) * 2``."""
+    return float(np.float32(noise_amount) * np.float32(2.0))
+
+
+def noise_params(frame_number, block_pixels: int, buffer_count: int,
                  noise_amount: float):
     """The two numbers that fix one frame's noise field: ``(base, amp)``,
     the seed's frame term ``frame*buffer_count*block_pixels mod 2**32``
-    and the amplitude ``float32(noise_amount) * 2``. The fitter kernels
-    take these and hash the field themselves (``csrc/fitter_front.cuh``)."""
-    base = ((int(frame_number) & _M32) * (buffer_count * block_pixels)) & _M32
-    return base, float(np.float32(noise_amount) * np.float32(2.0))
+    and the amplitude :func:`noise_amp`. ``frame_number``: a host int, or
+    an integer tensor (``base`` is then an int64 tensor). The fitter
+    kernels read the frame and hash the field themselves
+    (``csrc/fitter_front.cuh``, ``frame_noise``)."""
+    if isinstance(frame_number, torch.Tensor):
+        frame = frame_number.to(torch.int64) & _M32
+    else:
+        frame = int(frame_number) & _M32
+    base = (frame * (buffer_count * block_pixels)) & _M32
+    return base, noise_amp(noise_amount)
 
 
-def feature_noise(frame_number: int, feature_count: int, block_pixels: int,
+def feature_noise(frame_number, feature_count: int, block_pixels: int,
                   buffer_count: int, noise_amount: float, device="cpu"):
     """Noise field added to the feature columns of every block at one
     frame: ``f32[feature_count, block_pixels]``, row 0 (the constant
     feature) zero. Seed ``e + f*block_pixels + frame*buffer_count*
-    block_pixels`` (opencl/bmfr.cl:173-182, :625-627)."""
+    block_pixels`` (opencl/bmfr.cl:173-182, :625-627). ``frame_number``:
+    a host int or a 0-d integer tensor on ``device``."""
     e = torch.arange(block_pixels, dtype=torch.int64, device=device)[None]
     f = torch.arange(feature_count, dtype=torch.int64, device=device)[:, None]
     base, amp = noise_params(frame_number, block_pixels, buffer_count,

@@ -19,18 +19,26 @@ call that computes the same function where there is one
 paths through ``denoise_sequence`` over 16 frames of the 1280x720 orbit
 scene: the JAX package's flagship (kernels A and B), the default
 ``BMFRConfig()`` (the reference-exact path: kernel D) and the flagship
-with ``solver="householder"`` (kernels A and C). For each it checks the
-launch counts, agreement with the same path on the plain versions and
-that every frame is closer to the clean render than its noisy input,
-and times the steady frames with CUDA events and the profiler, with the
-launches per frame that the in-kernel noise saves. The stream phase
+with ``solver="householder"`` (kernels A and C). ``denoise_sequence``
+runs frame 0 eagerly and replays the compiled step (a CUDA graph,
+``pipeline/graph.py``) for frames 1-15. For each path it checks the
+launch counts, that the compiled frames equal the eager step bit for
+bit, agreement with the same path on the plain versions and that every
+frame is closer to the clean render than its noisy input, and times the
+steady frames eager and compiled with CUDA events and the profiler
+(device busy ms and kernels per frame, capture seconds, peak memory),
+with the launches per frame that the in-kernel noise saves; then the
+per-stage device split of the flagship and the default path
+(``profile_stages --trace``). The stream phase
 writes the 16 frames to a temporary directory in the TUNI layout
 (``io/export.py``; a second directory links the same files under a
 camera header with a tight position limit), finds both with
 ``discover_scenes``, streams the flagship and the default path from disk
-in chunks of 5 (``stream_scene``: launch counts, bit-equal to
-``denoise_sequence``), resumes the flagship from a checkpoint at frame 8
-(bit-equal), streams both directories at once (``stream_scenes``: the
+in chunks of 5 (``stream_scene``, whose chunk runner replays its
+compiled step: launch counts, bit-equal to ``denoise_sequence``),
+resumes the flagship from a checkpoint at frame 8 through
+``make_denoise_frame``'s compiled step (bit-equal), streams both
+directories at once (``stream_scenes``: the
 first bit-equal, the second different), and splits the streamed
 flagship's time into ingest, compute and wall. Kernel E
 is off every pipeline path: it is driven by ``gather_taps(mode=
@@ -74,6 +82,9 @@ from bmfr_tpu_torch.ops.warp import (gather_taps, pack_pairs_bf16,
                                      pack_x_pairs_bf16, warp_rows,
                                      warp_rows_reference)
 from bmfr_tpu_torch.ops.warp_blend import warp_blend, warp_blend_reference
+from bmfr_tpu_torch.pipeline.graph import CompiledStep
+from bmfr_tpu_torch.profile_stages import steady_setup, trace_report
+from bmfr_tpu_torch.profiling import device_events
 from bmfr_tpu_torch.rng import feature_noise
 
 WIDTH, HEIGHT, FRAMES = 1280, 720, 16
@@ -161,8 +172,7 @@ def device_breakdown(label, run, frames):
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern = device_events(prof.events())
     if not kern:
         print(f"[profile {label}] no device events recorded: not measured")
         return None
@@ -200,9 +210,8 @@ def kernel_device_ms(fn, kernel, calls=10):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and kernel in e.name]
+    us = [e.time_range.elapsed_us() for e in device_events(prof.events())
+          if kernel in e.name]
     return sum(us) / calls / 1e3 if us else None
 
 
@@ -216,8 +225,7 @@ def kernels_launched(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    n = sum(1 for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA)
+    n = len(device_events(prof.events()))
     return n or None
 
 
@@ -330,15 +338,30 @@ def check_rows(src, iy, ix, label):
     return 0.0
 
 
-def steady_frames(cfg, inputs, cams, offs, plain_path):
-    """Run frame 0 of the per-frame step; return a closure running frames
-    1..15 on that state (a packed state is updated in place, a raw one
-    is rebuilt from frame 0's each run) between two CUDA events, and the
-    events."""
-    step = bt.make_denoise_frame(cfg, plain=plain_path)
+def eager_sequence(cfg, inputs, cams, offs):
+    """The scene through the eager ``denoise_frame``, frame by frame: the
+    reference the compiled frames are held to bit for bit."""
+    st, out = bt.zero_state(cfg, inputs.noisy.device), []
+    for t in range(FRAMES):
+        st, o = bt.denoise_frame(cfg, st, frame_of(inputs, t),
+                                 cams[max(t - 1, 0)], offs[t], t)
+        out.append(o["result"])
+    return torch.stack(out)
+
+
+def steady_frames(cfg, inputs, cams, offs, mode):
+    """Run frame 0 eagerly; return a closure running frames 1..15 on that
+    state between two CUDA events, the events and the compiled step.
+    ``mode``: ``"eager"`` (``denoise_frame``), ``"plain"`` (its plain
+    versions) or ``"compiled"`` (replays of a ``CompiledStep``, which its
+    first run captures). A packed state is updated in place, a raw one is
+    rebuilt from frame 0's each run."""
     dev = inputs.noisy.device
-    st0, _ = step(bt.zero_state(cfg, dev), frame_of(inputs, 0), cams[0],
-                  offs[0], 0)
+    plain = mode == "plain"
+    st0, _ = bt.denoise_frame(cfg, bt.zero_state(cfg, dev),
+                              frame_of(inputs, 0), cams[0], offs[0], 0,
+                              plain=plain)
+    compiled = CompiledStep(cfg) if mode == "compiled" else None
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -347,24 +370,40 @@ def steady_frames(cfg, inputs, cams, offs, plain_path):
         st = st0
         start.record()
         for t in range(1, FRAMES):
-            st, _ = step(st, frame_of(inputs, t), cams[t - 1], offs[t], t)
+            args = (st, frame_of(inputs, t), cams[t - 1], offs[t], t)
+            st = (compiled.run(*args) if compiled
+                  else bt.denoise_frame(cfg, *args, plain=plain))[0]
         end.record()
-    return run, start, end
+    return run, start, end, compiled
 
 
-def steady_ms(cfg, inputs, cams, offs, plain_path):
-    """Mean ms per warped frame, CUDA events around the host loop."""
-    run, start, end = steady_frames(cfg, inputs, cams, offs, plain_path)
-    run()
+def steady_ms(cfg, inputs, cams, offs, mode, runs=1):
+    """Mean ms per warped frame of each of ``runs`` runs after a warm-up
+    run (CUDA events around the host loop), the peak memory from before
+    the warm-up, the compiled step's capture seconds and the profile of
+    one more run."""
+    run, start, end, compiled = steady_frames(cfg, inputs, cams, offs, mode)
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / (FRAMES - 1)
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    ms = []
+    for _ in range(runs):
+        run()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end) / (FRAMES - 1))
+    peak = torch.cuda.max_memory_allocated()
+    capture_s = (sum(compiled.capture_seconds.values()) if compiled
+                 else None)
+    return dict(ms_per_frame=ms, max_memory_allocated=peak,
+                capture_s=capture_s, run=run)
 
 
 def run_path(label, cfg, sc, inputs, cams, offs, counters, expected):
     """Drive ``denoise_sequence`` over the scene with every kernel count
     set to 0 just before and read just after; hold the counts to
-    ``expected`` and the output to the plain path and the clean render;
-    time the steady frames. Returns the path's record."""
+    ``expected``, the compiled frames to the eager step bit for bit and
+    the output to the plain path and the clean render; time the steady
+    frames eager and compiled. Returns the path's record."""
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -372,8 +411,9 @@ def run_path(label, cfg, sc, inputs, cams, offs, counters, expected):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
-    print(f"[path {label}] denoise_sequence {FRAMES} frames (first run): "
-          f"{first_s:.2f} s; launches {launches}")
+    print(f"[path {label}] denoise_sequence {FRAMES} frames (first run, "
+          f"frame 1 captures the compiled step): {first_s:.2f} s; "
+          f"launches {launches}")
     require(launches == expected, f"{label}: launch counts {launches}, "
             f"expected {expected}")
     require(tuple(out.shape) == (FRAMES, 3, HEIGHT, WIDTH),
@@ -381,6 +421,16 @@ def run_path(label, cfg, sc, inputs, cams, offs, counters, expected):
     require(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
     require(float(out.min()) >= 0.0 and float(out.max()) <= 1.0,
             f"{label}: output outside [0, 1]")
+    eager = eager_sequence(cfg, inputs, cams, offs)
+    again = bt.denoise_sequence(cfg, inputs, cams, offs)
+    same = bool(torch.equal(out, eager)) and bool(torch.equal(again, eager))
+    diff = float((out - eager).abs().max())
+    print(f"[path {label}] compiled frames 1-{FRAMES - 1} (capture, then a "
+          f"second call of replays only) bit-equal to the eager step: "
+          f"{same} (max |diff| {diff})")
+    require(same, f"{label}: the compiled step differs from the eager one "
+            f"by {diff}")
+    del eager, again
     plain = bt.denoise_sequence(cfg, inputs, cams, offs, plain=True)
     out_np, plain_np = out.cpu().numpy(), plain.cpu().numpy()
     dbs = [psnr(out_np[t], plain_np[t]) for t in range(FRAMES)]
@@ -404,20 +454,31 @@ def run_path(label, cfg, sc, inputs, cams, offs, counters, expected):
             "than its noisy input")
     del out, plain
 
-    steady_ms(cfg, inputs, cams, offs, False)          # warm-up
-    torch.cuda.reset_peak_memory_stats()
-    path_ms = [steady_ms(cfg, inputs, cams, offs, False) for _ in range(3)]
-    peak = torch.cuda.max_memory_allocated()
-    plain_ms = steady_ms(cfg, inputs, cams, offs, True)
-    print(f"[time {label}] steady ms/frame (3 runs): "
-          + ", ".join(f"{m:.4f}" for m in path_ms)
-          + f"; with plain versions {plain_ms:.4f}; "
-          f"max_memory_allocated {peak} B ({peak / 2**20:.1f} MiB)")
-    profile = device_breakdown(
-        label, steady_frames(cfg, inputs, cams, offs, False)[0], FRAMES - 1)
-    return dict(launches=launches, path_ms_per_frame=path_ms,
-                path_plain_ms_per_frame=plain_ms, max_memory_allocated=peak,
-                profile=profile, path_psnr_db=dbs, clean_psnr_db=den_db,
+    timing = {mode: steady_ms(cfg, inputs, cams, offs, mode, runs=3)
+              for mode in ("eager", "compiled")}
+    plain_ms = steady_ms(cfg, inputs, cams, offs, "plain")["ms_per_frame"][0]
+    for mode, rec in timing.items():
+        rec["profile"] = device_breakdown(f"{label} {mode}", rec.pop("run"),
+                                          FRAMES - 1)
+    eager, comp = timing["eager"], timing["compiled"]
+    print(f"[time {label}] {gpu_line()}: steady ms/frame (3 runs) eager "
+          + ", ".join(f"{m:.4f}" for m in eager["ms_per_frame"])
+          + "; compiled " + ", ".join(f"{m:.4f}" for m in
+                                      comp["ms_per_frame"])
+          + f"; with plain versions {plain_ms:.4f}; capture + instantiate "
+          f"{comp['capture_s']:.3f} s; max_memory_allocated eager "
+          f"{eager['max_memory_allocated']} B, compiled "
+          f"{comp['max_memory_allocated']} B")
+    return dict(launches=launches, first_run_s=first_s,
+                compiled_bit_equal=same,
+                path_ms_per_frame=eager["ms_per_frame"],
+                compiled_ms_per_frame=comp["ms_per_frame"],
+                path_plain_ms_per_frame=plain_ms,
+                capture_s=comp["capture_s"],
+                max_memory_allocated=eager["max_memory_allocated"],
+                compiled_max_memory_allocated=comp["max_memory_allocated"],
+                profile=eager["profile"], compiled_profile=comp["profile"],
+                path_psnr_db=dbs, clean_psnr_db=den_db,
                 noisy_clean_psnr_db=noisy_db)
 
 
@@ -502,9 +563,10 @@ def _stream_phase(root, sc, inputs, cams, offs, flagship, exact, dev,
                                           offs).cpu().numpy()
         equal = bool(np.array_equal(outs[label], refs[label]))
         err = float(np.abs(outs[label] - refs[label]).max())
-        print(f"[stream {label}] stream_scene chunks of {STREAM_CHUNK} "
-              f"(first run {first_s:.2f} s): launches {launches}; "
-              f"bit-equal to denoise_sequence: {equal} (max |diff| {err})")
+        print(f"[stream {label}] stream_scene chunks of {STREAM_CHUNK}, "
+              f"compiled chunk runner (first run {first_s:.2f} s): launches "
+              f"{launches}; bit-equal to denoise_sequence: {equal} (max "
+              f"|diff| {err})")
         require(launches == expected, f"stream {label}: launches {launches}, "
                 f"expected {expected}")
         require(equal, f"stream {label}: differs from denoise_sequence by "
@@ -558,14 +620,17 @@ def _stream_phase(root, sc, inputs, cams, offs, flagship, exact, dev,
     serial_s, overlap_s = sum(ingest) + sum(compute) / 1e3, max(
         sum(ingest), sum(compute) / 1e3)
     hidden = abs(wall_s - overlap_s) < abs(wall_s - serial_s)
-    steady = steady_ms(flagship, inputs, cams, offs, False)
-    st0, _ = step(bt.TemporalState.initial(flagship, dev),
-                  frame_of(inputs, 0), cams[0], offs[0], 0)
+    steady = steady_ms(flagship, inputs, cams, offs,
+                       "compiled")["ms_per_frame"][0]
+    st0, _ = bt.denoise_frame(flagship, bt.TemporalState.initial(flagship,
+                                                                 dev),
+                              frame_of(inputs, 0), cams[0], offs[0], 0)
 
     def temporal_run():
         st = st0
         for t in range(1, FRAMES):
-            st, _ = step(st, frame_of(inputs, t), cams[t - 1], offs[t], t)
+            st, _ = bt.denoise_frame(flagship, st, frame_of(inputs, t),
+                                     cams[t - 1], offs[t], t)
 
     profile = device_breakdown("flagship TemporalState carry", temporal_run,
                                FRAMES - 1)
@@ -580,8 +645,9 @@ def _stream_phase(root, sc, inputs, cams, offs, flagship, exact, dev,
           f"{sum(compute) / 1e3:.4f} s = {serial_s:.4f} s, max "
           f"{overlap_s:.4f} s, wall {wall_s:.4f} s: closer to the "
           + ("max (ingest overlapped)" if hidden else "sum (serial)")
-          + f"; in-memory steady {steady:.4f} ms/frame; device kernels per "
-          f"frame {kpf} on the TemporalState carry vs {packed_kpf} packed; "
+          + f"; in-memory compiled steady {steady:.4f} ms/frame; eager "
+          f"device kernels per frame {kpf} on the TemporalState carry vs "
+          f"{packed_kpf} packed; "
           f"max_memory_allocated {peak} B")
     rec["timing"] = dict(
         wall_ms_per_frame=wall_s * 1e3 / FRAMES, ingest_s_per_chunk=ingest,
@@ -589,7 +655,7 @@ def _stream_phase(root, sc, inputs, cams, offs, flagship, exact, dev,
         compute_ms_per_chunk=compute, chunk_frames=STREAM_CHUNK,
         wall_s=wall_s, ingest_plus_compute_s=serial_s,
         max_ingest_compute_s=overlap_s, ingest_hidden=hidden,
-        in_memory_steady_ms_per_frame=steady,
+        in_memory_compiled_ms_per_frame=steady,
         temporal_carry_kernels_per_frame=kpf,
         packed_carry_kernels_per_frame=packed_kpf,
         max_memory_allocated=peak, load_frames_s=load_s)
@@ -822,6 +888,14 @@ def main():
         print(f"[launches] {label}: {after} device kernels per steady frame "
               f"with the noise hashed in the kernel; the torch noise field "
               f"took {saved} more per frame")
+
+    # ---- the per-stage device split (profile_stages --trace) ----
+    for label, cfg in (("flagship", flagship), ("default", exact)):
+        print(f"[stages {label}] {gpu_line()}")
+        per, other, total = trace_report(cfg, *steady_setup(cfg, dev), 5,
+                                         dev)
+        paths[label]["stages_ms_per_frame"] = dict(
+            per, unattributed=other, total=total)
 
     # ---- the stream phase: the scene from disk, streamed and resumed ----
     paths["stream"] = stream_phase(

@@ -35,7 +35,7 @@ B_DTYPES = ("float32", "float16", "bfloat16")
 CALLS = 20
 
 CHILD = r"""
-import json, sys
+import inspect, json, sys
 import numpy as np
 sys.path.insert(0, sys.argv[1])
 import torch
@@ -44,7 +44,8 @@ import chip_smoke as cs
 from bmfr_tpu_torch.io.fixtures import synthetic_sequence
 from bmfr_tpu_torch.ops import _lib
 from bmfr_tpu_torch.ops.blockify import build_feature_blocks
-from bmfr_tpu_torch.ops.fitter_direct import (fit_reconstruct_cholesky,
+from bmfr_tpu_torch.ops.fitter_direct import (fit_blocks_direct,
+                                              fit_reconstruct_cholesky,
                                               fit_reconstruct_direct)
 from bmfr_tpu_torch.ops.fitter_pallas import fit_blocks_pallas
 from bmfr_tpu_torch.ops.reproject import reproject_coords
@@ -94,10 +95,16 @@ run_c = lambda: fit_reconstruct_direct(hh, c5.normals, c5.positions,
                                        c5.noisy, 5)
 out["c_ms"] = cs.kernel_device_ms(run_c, "fit_direct", CALLS)
 saved["C image"], saved["C weights"] = (x.cpu().numpy() for x in run_c())
+out["c_blocks_ms"] = cs.kernel_device_ms(lambda: fit_blocks_direct(
+    hh, c5.normals, c5.positions, c5.noisy, 5), "fit_direct", CALLS)
 np.savez(SAVE, **saved)
+# the eager steady step: chip_smoke's steady_frames takes a mode since the
+# compiled step, a plain-versions flag before it
+eager = ("eager" if "mode" in inspect.signature(cs.steady_frames).parameters
+         else False)
 for label, cfg in (("flagship", flagship), ("default", exact),
                    ("householder_flagship", hh)):
-    run = cs.steady_frames(cfg, inputs, cams, offs, False)[0]
+    run = cs.steady_frames(cfg, inputs, cams, offs, eager)[0]
     run()
     torch.cuda.synchronize()
     out["paths"][label] = cs.device_breakdown(label, run, T - 1)
@@ -142,6 +149,8 @@ def main():
         print(f"D {key:>14}  " + "  ".join(
             f"{r['d_ms'][key]:.4f}" for r in results))
     print("C reconstruct     " + "  ".join(f"{r['c_ms']:.4f}" for r in results))
+    print("C blocks          " + "  ".join(
+        f"{r['c_blocks_ms']:.4f}" for r in results))
     print("max |diff| from the first root's output")
     for key in outputs[0]:
         print(f"{key:>24}  " + "  ".join(

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
-a few shapes (including H and W not multiples of 32), and the port's
-paths with kernels against the same paths with plain versions.
+a few shapes (including H and W not multiples of 32), the port's paths
+with kernels against the same paths with plain versions, and the
+compiled step (a replayed CUDA graph) against the eager step, bit for
+bit.
 
 Needs a CUDA device: every test skips without one (decided inside the
 ``cuda`` fixture, never at import). This file imports no JAX, so it runs
@@ -466,3 +468,166 @@ def test_stream_scenes_two_streams_equal_single_runs(cuda, tmp_path):
     for got, want in zip(both, single):
         np.testing.assert_array_equal(got, want)
     assert np.abs(single[0] - single[1]).max() > 1e-3
+
+
+# ---- the compiled step (pipeline/graph.py) ----
+
+def path_cfg(path, H, W):
+    return bt.BMFRConfig(image_width=W, image_height=H,
+                         position_limit_squared=0.03,
+                         normal_limit_squared=0.5,
+                         **{"default": {}, "flagship": bt.FLAGSHIP,
+                            "householder_flagship": dict(
+                                bt.FLAGSHIP, solver="householder")}[path])
+
+
+def eager_run(cfg, inputs, cams, offs, state):
+    """Every frame through the eager denoise_frame: (results, state)."""
+    out = []
+    for t in range(inputs.noisy.shape[0]):
+        state, o = bt.denoise_frame(cfg, state,
+                                    bt.FrameInputs(*(x[t] for x in inputs)),
+                                    cams[max(t - 1, 0)], offs[t], t)
+        out.append(o["result"].clone())
+    return torch.stack(out), state
+
+
+@pytest.mark.parametrize("path,carry", [
+    ("default", "temporal"), ("flagship", "packed"),
+    ("flagship", "temporal"), ("householder_flagship", "packed"),
+    ("householder_flagship", "temporal")])
+def test_compiled_step_equals_eager_bit_for_bit(cuda, path, carry):
+    """make_denoise_frame (frame 0 eager, then a captured graph replayed
+    for 19 frames) against the eager denoise_frame, bit for bit, in the
+    results and the final state."""
+    H, W, T = 64, 96, 20
+    cfg = path_cfg(path, H, W)
+    inputs, cams, offs = scene(H, W, cuda, frames=T)
+    initial = (bt.PackedState if carry == "packed"
+               else bt.TemporalState).initial
+    want, want_state = eager_run(cfg, inputs, cams, offs, initial(cfg, cuda))
+    step = bt.make_denoise_frame(cfg)
+    state, got = initial(cfg, cuda), []
+    for t in range(T):
+        state, res = step(state, bt.FrameInputs(*(x[t] for x in inputs)),
+                          cams[max(t - 1, 0)], offs[t], t)
+        got.append(res)
+    assert torch.equal(torch.stack(got), want)
+    for a, b in zip(state, want_state):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("path", ["default", "flagship"])
+def test_denoise_sequence_compiled_equals_eager(cuda, path):
+    H, W, T = 48, 160, 6
+    cfg = path_cfg(path, H, W)
+    inputs, cams, offs = scene(H, W, cuda, frames=T)
+    want, _ = eager_run(cfg, inputs, cams, offs, bt.zero_state(cfg, cuda))
+    for _ in range(2):    # the capture, then a replay of the cached step
+        assert torch.equal(bt.denoise_sequence(cfg, inputs, cams, offs),
+                           want)
+
+
+@pytest.mark.parametrize("path", ["default", "flagship"])
+def test_compiled_step_resumes_from_load_state(cuda, tmp_path, path):
+    """A state from load_state is copied into the compiled step's carry
+    and the run goes on bit-equal to the uninterrupted eager run."""
+    H, W, T = 64, 96, 20
+    cfg = path_cfg(path, H, W)
+    inputs, cams, offs = scene(H, W, cuda, frames=T)
+    want, _ = eager_run(cfg, inputs, cams, offs,
+                        bt.TemporalState.initial(cfg, cuda))
+    step = bt.make_denoise_frame(cfg)
+    state, got = bt.TemporalState.initial(cfg, cuda), []
+    for t in range(T):
+        if t == 11:
+            bt.save_state(str(tmp_path / "s.npz"), state, t)
+            state, t0 = bt.load_state(str(tmp_path / "s.npz"))
+            assert t0 == 11
+        state, res = step(state, bt.FrameInputs(*(x[t] for x in inputs)),
+                          cams[max(t - 1, 0)], offs[t], t)
+        got.append(res)
+    assert torch.equal(torch.stack(got), want)
+
+
+@pytest.mark.parametrize("carry", ["packed", "temporal"])
+def test_compiled_step_without_donation_leaves_states_intact(cuda, carry):
+    H, W, T = 64, 96, 5
+    cfg = path_cfg("flagship", H, W)
+    inputs, cams, offs = scene(H, W, cuda, frames=T)
+    initial = (bt.PackedState if carry == "packed"
+               else bt.TemporalState).initial
+    want, _ = eager_run(cfg, inputs, cams, offs, initial(cfg, cuda))
+    step = bt.make_denoise_frame(cfg, donate=False)
+    state, kept, got = initial(cfg, cuda), [], []
+    for t in range(T):
+        state, res = step(state, bt.FrameInputs(*(x[t] for x in inputs)),
+                          cams[max(t - 1, 0)], offs[t], t)
+        kept.append((state, [x.clone() for x in state]))
+        got.append(res)
+    assert torch.equal(torch.stack(got), want)
+    for st, copy in kept:
+        for a, b in zip(st, copy):
+            assert torch.equal(a, b)
+    # a state from the middle steps again to the same frame
+    again, res = step(kept[2][0], bt.FrameInputs(*(x[3] for x in inputs)),
+                      cams[2], offs[3], 3)
+    assert torch.equal(res, want[3])
+
+
+@pytest.mark.parametrize("path,counters", [
+    ("flagship", {"warp_blend": warp_blend,
+                  "fit_reconstruct_cholesky": fit_reconstruct_cholesky}),
+    ("default", {"fit_blocks_pallas": fit_blocks_pallas,
+                 "warp_rows": warp_rows}),
+    ("householder_flagship", {
+        "warp_blend": warp_blend,
+        "fit_reconstruct_direct": fitter_direct.fit_reconstruct_direct})])
+def test_replays_advance_the_launch_counters(cuda, path, counters):
+    """Each replay adds the captured step's launches; the capture adds
+    none: denoise_sequence counts as the eager loop does, at its first
+    call (which captures) and at a later one (which replays only)."""
+    from bmfr_tpu_torch.pipeline.graph import compiled_step
+
+    H, W, T = 48, 160, 7
+    cfg = path_cfg(path, H, W)
+    inputs, cams, offs = scene(H, W, cuda, frames=T)
+    warped = 0 if path == "default" else T - 1
+    expected = {"warp_blend": warped, "warp_rows": 0,
+                "fit_reconstruct_cholesky": T, "fit_reconstruct_direct": T,
+                "fit_blocks_pallas": T}
+    compiled_step.cache_clear()
+    for _ in range(2):
+        for fn in counters.values():
+            fn.launches = 0
+        bt.denoise_sequence(cfg, inputs, cams, offs)
+        assert {k: fn.launches for k, fn in counters.items()} == {
+            k: expected[k] for k in counters}
+
+
+def test_compiled_step_takes_a_tensor_frame(cuda):
+    H, W, T = 64, 96, 4
+    cfg = path_cfg("default", H, W)
+    inputs, cams, offs = scene(H, W, cuda, frames=T)
+    want, _ = eager_run(cfg, inputs, cams, offs, bt.zero_state(cfg, cuda))
+    step = bt.make_denoise_frame(cfg)
+    state, got = bt.zero_state(cfg, cuda), []
+    for t in range(T):
+        frame = torch.tensor(t, dtype=torch.int32, device=cuda)
+        state, res = step(state, bt.FrameInputs(*(x[t] for x in inputs)),
+                          cams[max(t - 1, 0)], offs[t], frame,
+                          history="always" if t else "never")
+        got.append(res)
+    assert torch.equal(torch.stack(got), want)
+
+
+def test_capture_raises_on_a_host_read(cuda):
+    """A step that reads the card on the host cannot be captured: the
+    capture raises, and nothing runs eagerly in its place."""
+    from bmfr_tpu_torch.pipeline.graph import capture
+
+    x = torch.ones(8, device=cuda)
+    with pytest.raises(RuntimeError):
+        capture(lambda: x.sum().item(), cuda)
+    torch.cuda.synchronize()
+    assert float((x + 1).sum()) == 16.0
