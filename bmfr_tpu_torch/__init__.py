@@ -16,8 +16,17 @@ library, :mod:`.io.native`), chunked streaming with the next chunk's
 ingest overlapped with compute (:func:`stream_scene`,
 :func:`stream_scenes`), checkpoint and resume of the recurrence in the
 JAX package's file format (:func:`save_state`, :func:`load_state`), and
-the command line ``python -m bmfr_tpu_torch.cli`` (PNGs out). This
-package imports neither JAX nor :mod:`bmfr_tpu`.
+the command line ``python -m bmfr_tpu_torch.cli`` (PNGs out).
+
+Fidelity: ``python -m bmfr_tpu_torch.fidelity`` (:mod:`.fidelity`) is
+the JAX package's PSNR/SSIM sweep of eleven configurations over the
+synthetic orbit, corridor and swing scenes or a TUNI scenes root (clean
+renders and OpenCL output PNGs found by
+:meth:`~.io.dataset.SceneDescriptor.load_references`), scored on the
+device (:mod:`.metrics`). :mod:`.oracle` is a copy of the JAX package's
+NumPy oracle, the literal restatement of ``opencl/bmfr.cl``, and
+:mod:`.parity` holds the port to it frame by frame; neither is on the
+denoise path. This package imports neither JAX nor :mod:`bmfr_tpu`.
 """
 
 from .checkpoint import load_state, save_state

@@ -1,7 +1,7 @@
 """Command-line runner of the port: scene in, denoised PNGs out.
 
 Port of :mod:`bmfr_tpu.cli`, with its flags and behaviour: load a scene
-(a TUNI scene directory or the synthetic orbit scene), run the 5-stage
+(a TUNI scene directory or a synthetic scene), run the 5-stage
 chain over its frames, print the profiling report in the reference's
 mean/min/max/total format (opencl/bmfr.cpp:489-517) and the PSNR against
 the clean render when there is one, and write one PNG per frame:
@@ -52,7 +52,7 @@ def _positive(text):
     return n
 
 
-def _device_arg(text):
+def device_arg(text):
     if text == "cpu":
         return text
     try:
@@ -63,6 +63,22 @@ def _device_arg(text):
     if index < 0:
         raise argparse.ArgumentTypeError(f"a card index is >= 0, got {index}")
     return index
+
+
+def resolve_device(arg):
+    """The device of a ``--device`` value (a card index or ``"cpu"``),
+    made the current card; None, with a message, when there is no card
+    of that index."""
+    if arg == "cpu":
+        return torch.device("cpu")
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if arg >= count:
+        print(f"Device index {arg} out of range ({count} available; "
+              "--device cpu runs on the CPU)")
+        return None
+    device = torch.device("cuda", arg)
+    torch.cuda.set_device(device)
+    return device
 
 
 def _build_argparser():
@@ -102,7 +118,7 @@ def _build_argparser():
     p.add_argument("--scenes-root",
                    help="denoise every scene under this directory "
                         "concurrently (TUNI layout, streaming mode)")
-    p.add_argument("--device", type=_device_arg, default=0,
+    p.add_argument("--device", type=device_arg, default=0,
                    help="card index (the reference's PLATFORM_INDEX/"
                         "DEVICE_INDEX, bmfr.cpp:33-34) or 'cpu'")
     p.add_argument("--skip-fitting", action="store_true")
@@ -128,13 +144,8 @@ def load_inputs(args):
         limits = dict(position_limit_squared=cam["position_limit_squared"],
                       normal_limit_squared=cam["normal_limit_squared"])
         return data, limits, sd
-    if args.synthetic_scene != "orbit":
-        raise NotImplementedError(
-            f"synthetic scene {args.synthetic_scene!r}: the port carries "
-            "only the orbit scene; the corridor and swing fixtures are "
-            "ROADMAP Queue 1 #13")
     data = synthetic_sequence(width=args.width, height=args.height,
-                              frames=args.frames)
+                              frames=args.frames, scene=args.synthetic_scene)
     return data, dict(position_limit_squared=0.03,
                       normal_limit_squared=0.5), None
 
@@ -156,16 +167,9 @@ def _write_outputs_parallel(outdir, named_frames):
 def main(argv=None):
     args = _build_argparser().parse_args(argv)
     print("Initialize.")
-    if args.device == "cpu":
-        device = torch.device("cpu")
-    else:
-        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if args.device >= count:
-            print(f"Device index {args.device} out of range ({count} "
-                  "available; --device cpu runs on the CPU)")
-            return 1
-        device = torch.device("cuda", args.device)
-        torch.cuda.set_device(device)
+    device = resolve_device(args.device)
+    if device is None:
+        return 1
     print("Using device: " + (torch.cuda.get_device_name(device)
                               if device.type == "cuda" else "cpu"))
 

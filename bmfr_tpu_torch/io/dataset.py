@@ -6,21 +6,43 @@ series, ``color``/``shading_normal``/``world_position``/``albedo`` +
 (opencl/bmfr.cpp:46-47). The reference hard-codes one scene per build;
 here a scene is a runtime object, found by :func:`discover_scenes` and
 loaded by the native threaded loader (:mod:`.native`), the counterpart of
-the reference's OpenMP parallel-for (opencl/bmfr.cpp:259-307). The
-golden references (``load_references``) are not ported yet (ROADMAP
-Queue 1 #11).
+the reference's OpenMP parallel-for (opencl/bmfr.cpp:259-307).
+``load_references`` finds and reads a scene's golden references, the
+clean renders and the OpenCL implementation's own output PNGs, for the
+fidelity sweep (:mod:`bmfr_tpu_torch.fidelity`).
 """
 
 from __future__ import annotations
 
 import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
+
+import numpy as np
 
 from . import native
 from .camera import parse_camera_matrices_header
 from .exr import read_exr
 
+#: The seven scenes of the TUNI dataset (README.md:10-12).
+TUNI_SCENES = (
+    "classroom", "living-room", "san-miguel", "sponza",
+    "sponza-glossy", "sponza-moving-light", "crytek-sponza",
+)
+
 BUFFER_NAMES = ("color", "shading_normal", "world_position", "albedo")
+
+#: Candidate series names for the dataset's 4096-spp reference renders
+#: (README.md:10-12 — the dataset ships them; naming varies by mirror).
+REFERENCE_EXR_CANDIDATES = (
+    "reference", "clean", "ref", "reference/reference", "clean/clean",
+)
+
+#: Candidate locations of the OpenCL implementation's own tone-mapped
+#: outputs (written as outputs/output<N>.png, opencl/bmfr.cpp:53,528).
+OPENCL_PNG_CANDIDATES = (
+    "outputs/output", "opencl_outputs/output", "opencl/output",
+)
 
 
 @dataclass
@@ -65,6 +87,57 @@ class SceneDescriptor:
         data["position_limit_squared"] = cam["position_limit_squared"]
         data["normal_limit_squared"] = cam["normal_limit_squared"]
         return data
+
+    def find_reference_exr(self):
+        """Series prefix of the scene's clean (4096-spp) EXR renders, or
+        None when the dataset mirror doesn't ship them."""
+        for cand in REFERENCE_EXR_CANDIDATES:
+            if os.path.exists(os.path.join(self.path, f"{cand}0.exr")):
+                return cand
+        return None
+
+    def find_opencl_png(self):
+        """Series prefix of the OpenCL reference implementation's output
+        PNGs (opencl/bmfr.cpp:53,528), or None."""
+        for cand in OPENCL_PNG_CANDIDATES:
+            if os.path.exists(os.path.join(self.path, f"{cand}0.png")):
+                return cand
+        return None
+
+    def load_references(self, frames=None, threads=0):
+        """Load whatever golden references exist for this scene.
+
+        Returns a dict with up to two keys:
+          * ``clean``: f32 ``[T, H, W, 3]`` linear 4096-spp renders (EXR,
+            one parallel native batch);
+          * ``opencl``: f32 ``[T, H, W, 3]`` in [0, 1] — the OpenCL
+            implementation's tone-mapped output PNGs, for the BASELINE
+            "within 0.1 dB of the OpenCL reference" comparison.
+        Missing series are absent from the dict.
+        """
+        frames = (list(range(self.frame_count)) if frames is None
+                  else list(frames))
+        threads = threads or (os.cpu_count() or 8)
+        out = {}
+        exr_prefix = self.find_reference_exr()
+        if exr_prefix is not None:
+            base = os.path.join(self.path, exr_prefix)
+            out["clean"] = native.load_frames(
+                [f"{base}{f}.exr" for f in frames], self.width, self.height,
+                3, threads)
+        png_prefix = self.find_opencl_png()
+        if png_prefix is not None:
+            base = os.path.join(self.path, png_prefix)
+            imgs = np.empty((len(frames), self.height, self.width, 3),
+                            np.float32)
+
+            def load_png(i):
+                imgs[i] = native.read_png_rgb01(f"{base}{frames[i]}.png")
+
+            with ThreadPoolExecutor(max_workers=threads) as ex:
+                list(ex.map(load_png, range(len(frames))))
+            out["opencl"] = imgs
+        return out
 
 
 def probe_scene(path: str) -> SceneDescriptor:

@@ -1,11 +1,23 @@
-"""Synthetic test scene: the analytic G-buffer renderer's orbit scene.
+"""Synthetic test scenes: an analytic G-buffer renderer.
 
-A copy of the orbit scene of :mod:`bmfr_tpu.io.fixtures` (pure numpy,
-byte-identical output for the same arguments): a sphere on a ground
-plane under a directional light, viewed by an orbiting jittered camera.
-It emits the reference's input contract (opencl/bmfr.cpp:49-52 and the
-camera_matrices.h symbols at :440-444). All arrays are channels-last
-numpy; convert at the device boundary.
+A copy of :mod:`bmfr_tpu.io.fixtures` (pure numpy; byte-identical output
+for the same arguments), kept here because the port imports nothing of
+the JAX package. Three scenes: ``orbit`` (a sphere on a ground plane,
+orbiting jittered camera), ``corridor`` (four spheres in a walled
+corridor, forward dolly) and ``swing`` (an enclosed room, a yaw pan and
+a jump of the eye at mid-sequence). The generator emits the reference's
+input contract (opencl/bmfr.cpp:49-52 and the camera_matrices.h symbols
+at :440-444):
+
+* ``normals``, ``world_position``, ``albedo`` — analytic G-buffer
+* ``noisy`` — 1-spp-like Monte-Carlo-noised diffuse shading
+* ``clean`` — the converged shading (stand-in for the 4096-spp references)
+* ``camera_matrices[T,4,4]`` — stored so that its *columns* project, i.e.
+  ``uv = wp4 @ M`` (matching opencl/bmfr.cl:342-347)
+* ``pixel_offsets[T,2]`` — sub-pixel jitter in [0,1)
+
+All arrays are channels-last numpy (host layout); convert at the device
+boundary.
 """
 
 from __future__ import annotations
@@ -54,6 +66,30 @@ _LIGHT = np.array([0.408, 0.816, 0.408])
 _ORBIT_SPHERES = [(np.array([0.0, 0.0, 0.0]), 1.0,
                    np.array([0.85, 0.45, 0.25]))]
 _ORBIT_PLANES = [(1, -1.0, 1.0)]
+_CORRIDOR_SPHERES = [
+    (np.array([-1.1, -0.55, -1.0]), 0.45, np.array([0.85, 0.45, 0.25])),
+    (np.array([1.2, -0.35, -3.0]), 0.65, np.array([0.30, 0.55, 0.85])),
+    (np.array([-0.8, 0.35, -5.2]), 0.5, np.array([0.55, 0.80, 0.35])),
+    (np.array([0.6, -0.6, -7.0]), 0.4, np.array([0.85, 0.80, 0.30])),
+]
+_CORRIDOR_PLANES = [(1, -1.0, 1.0),   # floor
+                    (0, -2.2, 1.0),   # left wall
+                    (0, 2.2, -1.0),   # right wall
+                    (2, -9.5, 1.0)]   # back wall
+
+# The swing room: a fully enclosed box (no miss pixels — background
+# misses store position 0, and a panning camera projects them all to one
+# screen point, a fixture-artifact mega-fold that would mask the real
+# motion structure) around the orbit sphere plus two satellites.
+_SWING_SPHERES = [
+    (np.array([0.0, 0.0, 0.0]), 1.0, np.array([0.85, 0.45, 0.25])),
+    (np.array([-1.8, -0.4, 1.6]), 0.55, np.array([0.30, 0.55, 0.85])),
+    (np.array([1.5, 0.6, -1.9]), 0.7, np.array([0.55, 0.80, 0.35])),
+]
+_SWING_PLANES = [(1, -1.0, 1.0),    # floor
+                 (1, 3.2, -1.0),    # ceiling
+                 (0, -4.5, 1.0), (0, 4.5, -1.0),   # x walls
+                 (2, -4.5, 1.0), (2, 4.5, -1.0)]   # z walls
 
 
 def _render_gbuffer(vp, eye, width, height, ox, oy,
@@ -118,7 +154,8 @@ def _render_gbuffer(vp, eye, width, height, ox, oy,
         normal = np.where(m, n, normal)
         albedo = np.where(m, alb, albedo)
     for j, (ax, _off, sign) in enumerate(planes):
-        # checker over the plane's two in-plane axes
+        # checker over the plane's two in-plane axes (the floor's is
+        # floor(x)+floor(z), exactly the original orbit fixture)
         a0, a1 = [a for a in (0, 1, 2) if a != ax]
         checker = ((np.floor(pos[..., a0]) + np.floor(pos[..., a1])) % 2)
         alb_pl = np.stack([0.8 - 0.5 * checker, 0.7 - 0.3 * checker,
@@ -143,18 +180,22 @@ def _render_gbuffer(vp, eye, width, height, ox, oy,
 def synthetic_sequence(width=64, height=48, frames=4, seed=0,
                        noise_scale=0.35, orbit_step=0.02, aa_samples=1,
                        scene="orbit"):
-    """Render a deterministic synthetic orbit sequence (sphere on a
-    ground plane, orbiting camera — lateral optical flow).
+    """Render a deterministic synthetic sequence.
+
+    ``scene``: "orbit" (sphere on a ground plane, orbiting camera —
+    lateral optical flow), "corridor" (four spheres in a walled
+    corridor, forward dolly — center-out disocclusion flow), or "swing"
+    (fixed-eye yaw pan — large near-uniform flow — with a camera
+    TELEPORT at ``frames // 2`` that breaks every reprojection test and
+    must engage the whole-frame fallback tier mid-sequence).
 
     Returns a dict of numpy arrays:
       normals/positions/albedo/noisy/clean: ``f32[T, H, W, 3]``
-      clean_aa: supersampled clean render (only if ``aa_samples > 1``)
+      clean_aa: supersampled clean render (only if ``aa_samples > 1``) —
+        the fair reference for the anti-aliasing TAA output
       camera_matrices: ``f32[T, 4, 4]`` (column-projecting storage)
       pixel_offsets: ``f32[T, 2]``
     """
-    if scene != "orbit":
-        raise ValueError(
-            f"scene {scene!r}: the port carries only the orbit scene")
     rng = np.random.RandomState(seed)
     T = frames
     keys = ["normals", "positions", "albedo", "noisy", "clean"]
@@ -166,11 +207,45 @@ def synthetic_sequence(width=64, height=48, frames=4, seed=0,
         [[_halton(t + 1, 2), _halton(t + 1, 3)] for t in range(T)],
         np.float32)
 
-    def camera(t):
-        ang = 0.7 + orbit_step * t
-        eye = np.array([3.2 * np.cos(ang), 1.2 + 0.05 * t,
-                        3.2 * np.sin(ang)])
-        return eye, np.array([0.0, -0.2, 0.0])
+    if scene == "orbit":
+        spheres, planes = _ORBIT_SPHERES, _ORBIT_PLANES
+
+        def camera(t):
+            ang = 0.7 + orbit_step * t
+            eye = np.array([3.2 * np.cos(ang), 1.2 + 0.05 * t,
+                            3.2 * np.sin(ang)])
+            return eye, np.array([0.0, -0.2, 0.0])
+    elif scene == "corridor":
+        # forward dolly with a slight sway: the motion structure TAA
+        # and the warp see is disocclusion-from-center, unlike the
+        # orbit's lateral flow
+        spheres, planes = _CORRIDOR_SPHERES, _CORRIDOR_PLANES
+
+        def camera(t):
+            eye = np.array([0.6 * np.sin(0.3 + 2.5 * orbit_step * t),
+                            0.15, 3.8 - 7.5 * orbit_step * t])
+            return eye, np.array([0.0, -0.1, eye[2] - 4.0])
+    elif scene == "swing":
+        # pure rotation about a (near-)fixed eye: reprojection flow is
+        # large and almost uniform per tile (stresses the plan's window
+        # placement, not its spread), then the eye teleports across the
+        # scene at mid-sequence — every bilinear tap fails the position
+        # test and the frame must be served by the fallback tier
+        spheres, planes = _SWING_SPHERES, _SWING_PLANES
+        half_t = max(frames // 2, 1)
+
+        def camera(t):
+            pan = 2.0 * orbit_step * t
+            if t < half_t:
+                eye = np.array([3.0, 1.1, 0.6])
+                yaw = 3.3 + pan     # scene center stays in frame
+            else:
+                eye = np.array([-2.6, 1.6, -1.2])  # the teleport
+                yaw = 0.35 + pan
+            look = np.array([np.cos(yaw), -0.30, np.sin(yaw)])
+            return eye, eye + look
+    else:
+        raise ValueError(f"unknown scene type: {scene!r}")
 
     for t in range(T):
         eye, center = camera(t)
@@ -181,7 +256,8 @@ def synthetic_sequence(width=64, height=48, frames=4, seed=0,
         cams[t] = vp.T.astype(np.float32)
 
         ox, oy = offsets[t]
-        g = _render_gbuffer(vp, eye, width, height, ox, oy)
+        g = _render_gbuffer(vp, eye, width, height, ox, oy,
+                            spheres, planes)
 
         noise = rng.gamma(shape=1.0 / max(noise_scale, 1e-6) ** 2,
                           scale=noise_scale**2, size=g["irr"].shape)
@@ -196,7 +272,8 @@ def synthetic_sequence(width=64, height=48, frames=4, seed=0,
             for s in range(aa_samples):
                 sx = _halton(s + 1, 2)
                 sy = _halton(s + 1, 3)
-                gs = _render_gbuffer(vp, eye, width, height, sx, sy)
+                gs = _render_gbuffer(vp, eye, width, height, sx, sy,
+                                     spheres, planes)
                 acc += gs["albedo"] * gs["irr"]
             out["clean_aa"][t] = (acc / aa_samples).astype(np.float32)
 

@@ -42,7 +42,18 @@ directories at once (``stream_scenes``: the
 first bit-equal, the second different), and splits the streamed
 flagship's time into ingest, compute and wall. Kernel E
 is off every pipeline path: it is driven by ``gather_taps(mode=
-"pallas")`` over the default path's 15 warped states. The last line is
+"pallas")`` over the default path's 15 warped states. Three fidelity
+phases follow, each with every count set to 0 before it and held to what
+its configurations launch: ``[fidelity r5]`` runs the fidelity sweep
+(``bmfr_tpu_torch/fidelity.py``, 11 configurations) over the four
+synthetic scenes at 128x96x8 and holds its 44 rows to the JAX package's
+TPU record ``FIDELITY_r5.json`` (noisy PSNR to 1e-9 dB; PSNR to 0.02 dB
+and SSIM to 1e-3, ``tmp_f16`` to 0.1 dB and 2e-3); ``[fidelity
+1280x720]`` sweeps corridor and swing at full size over 4 frames (every
+row above its noisy input, the flagships within 0.1 dB of the default
+path); ``[oracle]`` holds the default path and the flagship to the
+port's copy of the NumPy oracle at 72x48x4 on orbit, corridor and swing
+(``bmfr_tpu_torch/parity.py``). The last line is
 the JSON contract ``{"ok": true, "device": {...}}``; any failed check
 exits non-zero before it. Without a CUDA device it exits non-zero at
 once.
@@ -53,7 +64,6 @@ from __future__ import annotations
 import json
 import os
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -65,6 +75,9 @@ import bmfr_tpu_torch as bt
 from bmfr_tpu_torch.io import native
 from bmfr_tpu_torch.io.dataset import discover_scenes
 from bmfr_tpu_torch.io.export import export_scene, write_camera_header
+from bmfr_tpu_torch import parity
+from bmfr_tpu_torch.fidelity import (device_name, print_report, run_sweep,
+                                     synthetic_scenes)
 from bmfr_tpu_torch.io.fixtures import synthetic_sequence
 from bmfr_tpu_torch.metrics import psnr
 from bmfr_tpu_torch.ops import _lib
@@ -108,6 +121,25 @@ MM_TOL = 1e-6
 #: each path with kernels vs with plain versions, per frame
 PATH_MIN_DB = 60.0
 SCENE_LIMITS = dict(position_limit_squared=0.03, normal_limit_squared=0.5)
+#: the kernel each configuration of the fidelity sweep launches, by its
+#: letter (A warp_blend, B fit_reconstruct_cholesky, C
+#: fit_reconstruct_direct, D fit_blocks_pallas; "cholesky" fits its blocks
+#: with the plain Cholesky solve, as JAX's falls back to XLA)
+SWEEP_KERNELS = {
+    "default": "D", "cholesky": "", "tmp_f16": "D", "warp_packed": "D",
+    "warp_pallas": "AD", "flagship": "AC", "flagship_cholesky": "AB",
+    "flagship_f32res": "AC", "residual_bf16": "D", "no_taa": "D",
+    "first_order": "D"}
+#: [fidelity r5]: the JAX package's TPU record, row by row: noisy_psnr to
+#: 1e-9 dB; psnr_mean/first/last (dB) and ssim_mean to these, per config
+R5_NOISY_TOL = 1e-9
+R5_TOL = {"tmp_f16": (0.1, 2e-3)}
+R5_TOL_DEFAULT = (0.02, 1e-3)
+#: [fidelity 1280x720]: the flagships within this of the default path's
+#: psnr_mean (BASELINE.md:25)
+FLAGSHIP_GAP_DB = 0.1
+#: [oracle]: size and frames (the workset rounds on both axes)
+ORACLE_W, ORACLE_H, ORACLE_T = 72, 48, 4
 #: the H100 SXM's data-sheet peaks: HBM bytes
 #: per second and f32 operations per second outside the tensor cores
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -138,12 +170,7 @@ def require(cond, msg):
 
 
 def gpu_line():
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    require(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr}")
-    return proc.stdout.strip().splitlines()[0]
+    return device_name(torch.device("cuda:0"))
 
 
 def cuda_ms(fn, reps, warmup=2):
@@ -662,6 +689,191 @@ def _stream_phase(root, sc, inputs, cams, offs, flagship, exact, dev,
     return rec
 
 
+def sweep_counters():
+    """The launch counters of the kernels the sweep's configurations
+    reach, by letter."""
+    return {"A": warp_blend, "B": fit_reconstruct_cholesky,
+            "C": fit_reconstruct_direct, "D": fit_blocks_pallas,
+            "E": warp_rows}
+
+
+def counted_sweep(label, scenes, base, dev):
+    """``run_sweep`` over ``scenes`` on the card with every count set to
+    0 just before and read just after, held to what ``SWEEP_KERNELS``
+    says each configuration launches. Returns (rows, launches)."""
+    counters = sweep_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rows = run_sweep(scenes, base, device=dev)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    expected = dict.fromkeys(counters, 0)
+    for sc in scenes.values():
+        T = sc["noisy"].shape[0]
+        for kernels in SWEEP_KERNELS.values():
+            for k in kernels:
+                expected[k] += T - 1 if k == "A" else T
+    print(f"[{label}] run_sweep {len(rows)} rows on the card: {sweep_s:.1f} s"
+          f"; launches {launches}")
+    require(len(rows) == len(scenes) * len(SWEEP_KERNELS),
+            f"{label}: {len(rows)} rows")
+    require(launches == expected, f"{label}: launch counts {launches}, "
+            f"expected {expected}")
+    return rows, launches
+
+
+def fidelity_r5_phase(dev):
+    """``run_sweep`` over the four synthetic scenes at FIDELITY_r5.json's
+    size, row by row against that record of the JAX package."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "FIDELITY_r5.json")) as f:
+        record = json.load(f)
+    meta = record["meta"]
+    W, H, T = meta["width"], meta["height"], meta["frames"]
+    t0 = time.perf_counter()
+    scenes = synthetic_scenes(W, H, T)
+    render_s = time.perf_counter() - t0
+    base = bt.BMFRConfig(image_width=W, image_height=H, **SCENE_LIMITS)
+    rows, launches = counted_sweep("fidelity r5", scenes, base, dev)
+    want = {(r["scene"], r["config"]): r for r in record["rows"]}
+    require(sorted(want) == sorted((r["scene"], r["config"]) for r in rows),
+            "fidelity r5: the rows differ from FIDELITY_r5.json's")
+    gaps, bad = {}, []
+    for r in rows:
+        w = want[(r["scene"], r["config"])]
+        tol_db, tol_ssim = R5_TOL.get(r["config"], R5_TOL_DEFAULT)
+        g = gaps.setdefault(r["config"], dict.fromkeys(
+            ("noisy_psnr", "psnr_mean", "psnr_first", "psnr_last",
+             "ssim_mean"), 0.0))
+        for key, tol in (("noisy_psnr", R5_NOISY_TOL), ("psnr_mean", tol_db),
+                         ("psnr_first", tol_db), ("psnr_last", tol_db),
+                         ("ssim_mean", tol_ssim)):
+            gap = abs(r[key] - w[key])
+            g[key] = max(g[key], gap)
+            if not gap <= tol:
+                bad.append(f"{r['scene']} {r['config']} {key}: {r[key]} vs "
+                           f"{w[key]} (tolerance {tol:g})")
+    print(f"[fidelity r5] {gpu_line()}: {W}x{H}x{T}, aa_samples 8, render "
+          f"{render_s:.1f} s; largest |gap| to FIDELITY_r5.json per config:")
+    for cname, g in gaps.items():
+        print(f"[fidelity r5]   {cname:<18}" + "  ".join(
+            f"{k} {v:.3e}" for k, v in g.items()))
+    for b in bad:
+        print(f"[fidelity r5] OFF: {b}")
+    require(not bad, f"fidelity r5: {len(bad)} values off tolerance")
+    return dict(rows=rows, largest_gap=gaps, launches=launches,
+                render_s=render_s)
+
+
+def fidelity_fullres_phase(dev):
+    """Corridor and swing at 1280x720, 4 frames, all 11 configurations:
+    every row closer to the clean render than its noisy input, and the
+    flagships within ``FLAGSHIP_GAP_DB`` of the default path."""
+    T = 4
+    t0 = time.perf_counter()
+    scenes = {name: synthetic_sequence(width=WIDTH, height=HEIGHT, frames=T,
+                                       seed=seed, aa_samples=2, scene=name)
+              for seed, name in ((3, "corridor"), (5, "swing"))}
+    render_s = time.perf_counter() - t0
+    base = bt.BMFRConfig(image_width=WIDTH, image_height=HEIGHT,
+                         **SCENE_LIMITS)
+    rows, launches = counted_sweep("fidelity 1280x720", scenes, base, dev)
+    print(f"[fidelity 1280x720] {gpu_line()}: {WIDTH}x{HEIGHT}x{T}, "
+          f"aa_samples 2, render {render_s:.1f} s")
+    print_report(rows)
+    by = {(r["scene"], r["config"]): r for r in rows}
+    for r in rows:
+        require(r["psnr_mean"] > r["noisy_psnr"],
+                f"fidelity 1280x720 {r['scene']} {r['config']}: "
+                f"{r['psnr_mean']:.4f} dB, noisy {r['noisy_psnr']:.4f} dB")
+    gaps = {}
+    for sname in scenes:
+        for cname in ("flagship", "flagship_cholesky"):
+            gap = (by[(sname, cname)]["psnr_mean"]
+                   - by[(sname, "default")]["psnr_mean"])
+            gaps[f"{sname} {cname}"] = gap
+            print(f"[fidelity 1280x720] {sname} {cname} - default: "
+                  f"{gap:+.6f} dB")
+            require(abs(gap) <= FLAGSHIP_GAP_DB, f"fidelity 1280x720 "
+                    f"{sname} {cname}: {gap:+.4f} dB from default")
+    return dict(rows=rows, flagship_gap_db=gaps, launches=launches,
+                render_s=render_s)
+
+
+def oracle_phase(dev):
+    """The default path and the flagship on the card against the port's
+    copy of the vectorized NumPy oracle, on orbit, corridor and swing
+    (``bmfr_tpu_torch/parity.py``'s tolerances). The control, the oracle
+    on a state truncated to bf16 in place of rounded, must miss the
+    flagship's per-frame floor of equal accept bits on some scene."""
+    cfg = bt.BMFRConfig(image_width=ORACLE_W, image_height=ORACLE_H,
+                        **SCENE_LIMITS)
+    counters = sweep_counters()
+    rec, control = {}, {}
+    for name in ("orbit", "corridor", "swing"):
+        sc = synthetic_sequence(width=ORACLE_W, height=ORACLE_H,
+                                frames=ORACLE_T, scene=name)
+        t0 = time.perf_counter()
+        oracle = parity.oracle_frames(cfg, sc)
+        oracle_bf16 = parity.oracle_frames(cfg, sc,
+                                           round_state=parity.bf16_round)
+        oracle_s = time.perf_counter() - t0
+        for label, pcfg, expected in (
+                ("default", cfg, dict(D=ORACLE_T)),
+                ("flagship", cfg.replace(**bt.FLAGSHIP),
+                 dict(A=ORACLE_T - 1, B=ORACLE_T))):
+            for fn in counters.values():
+                fn.launches = 0
+            port = parity.port_frames(pcfg, sc, dev)
+            launches = {k: fn.launches for k, fn in counters.items()
+                        if fn.launches}
+            recs = [parity.compare(p, o) for p, o in zip(port, oracle)]
+            if label == "default":
+                faults = [f"frame {t}: {f}" for t, r in enumerate(recs)
+                          for f in parity.default_faults(r)]
+                bf16 = None
+            else:
+                bf16 = [parity.compare(p, o)
+                        for p, o in zip(port, oracle_bf16)]
+                faults = parity.flagship_faults(recs, bf16)
+            cols = [("dB per frame", [f"{r['psnr_db']:.2f}" for r in recs]),
+                    ("max |diff|", [f"{r['max_abs']:.2e}" for r in recs]),
+                    ("accept bits equal", [f"{100 * r['accept_share']:.2f}%"
+                                           for r in recs])]
+            if bf16 is None:
+                cols.append(("values off tolerance (weights/filtered/"
+                             "result)", [f"{r['off_weights']}/"
+                                         f"{r['off_filtered']}/"
+                                         f"{r['off_result']}" for r in recs]))
+            else:
+                cols.append(("accept bits equal to the bf16-state oracle's",
+                             [f"{100 * r['accept_share']:.2f}%"
+                              for r in bf16]))
+            print(f"[oracle] {name} {label} {ORACLE_W}x{ORACLE_H}x{ORACLE_T} "
+                  f"(oracle {oracle_s:.1f} s), launches {launches}: "
+                  + "; ".join(f"{k} {', '.join(v)}" for k, v in cols))
+            require(launches == expected, f"oracle {name} {label}: launches "
+                    f"{launches}, expected {expected}")
+            require(not faults, f"oracle {name} {label}: {faults}")
+            rec[f"{name} {label}"] = dict(frames=recs, bf16_state=bf16,
+                                          launches=launches)
+        trunc = parity.oracle_frames(cfg, sc, round_state=parity.bf16_truncate)
+        control[name] = [parity.compare(c, o)["accept_share"]
+                         for c, o in zip(trunc, oracle)]
+        print(f"[oracle] {name} control (state truncated to bf16): accept "
+              "bits equal " + ", ".join(f"{100 * a:.2f}%"
+                                        for a in control[name]))
+    require(any(min(c) < parity.FLAGSHIP_ACCEPT_SHARE
+                for c in control.values()),
+            f"oracle: the flagship's floor of "
+            f"{parity.FLAGSHIP_ACCEPT_SHARE:.0%} equal accept bits rejects "
+            f"no control run: {control}")
+    rec["control"] = control
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke FAIL: no CUDA device")
@@ -923,7 +1135,14 @@ def main():
           f"warped states: launches {e_launches}, equal to "
           f"mode='packed_x_bf16': {same}")
     require(e_launches == FRAMES - 1 and same, "kernel E's tap path")
-    del taps, taps_in
+    del taps, taps_in, step, st
+
+    # ---- fidelity and the oracle: the sweep of bmfr_tpu_torch/fidelity.py
+    # against the JAX package's TPU record, at full size, and the default
+    # path and the flagship against the NumPy oracle ----
+    paths["fidelity_r5"] = fidelity_r5_phase(dev)
+    paths["fidelity_1280x720"] = fidelity_fullres_phase(dev)
+    paths["oracle"] = oracle_phase(dev)
 
     no_library = {
         "A": "none: no single call computes the clipped 4-tap blend of the "

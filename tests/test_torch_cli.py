@@ -80,11 +80,15 @@ def test_bad_arguments_are_refused(argv):
     assert exc.value.code == 2
 
 
-def test_corridor_scene_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #13"):
-        main(["--synthetic", "--synthetic-scene", "corridor", "--width",
-              str(W), "--height", str(H), "--frames", "1", "--no-output",
-              "--device", "cpu"])
+def test_corridor_scene_is_not_ported(tmp_path, capsys):
+    """``--synthetic-scene corridor`` runs on the CPU: one PNG per frame
+    and the PSNR against the corridor's clean render."""
+    out = str(tmp_path / "out")
+    assert main(["--synthetic", "--synthetic-scene", "corridor", "--width",
+                 str(W), "--height", str(H), "--frames", str(T), "--output",
+                 out, *FAST]) == 0
+    assert pngs(out)[0] == [f"output{t}.png" for t in range(T)]
+    assert "PSNR" in capsys.readouterr().out
 
 
 def test_missing_card_index_is_an_error(capsys):

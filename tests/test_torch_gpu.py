@@ -2,7 +2,8 @@
 a few shapes (including H and W not multiples of 32), the port's paths
 with kernels against the same paths with plain versions, and the
 compiled step (a replayed CUDA graph) against the eager step, bit for
-bit.
+bit, the metrics and the fidelity sweep on the card against the CPU, and
+the default path and the flagship against the NumPy oracle.
 
 Needs a CUDA device: every test skips without one (decided inside the
 ``cuda`` fixture, never at import). This file imports no JAX, so it runs
@@ -631,3 +632,58 @@ def test_capture_raises_on_a_host_read(cuda):
         capture(lambda: x.sum().item(), cuda)
     torch.cuda.synchronize()
     assert float((x + 1).sum()) == 16.0
+
+
+@pytest.mark.parametrize("shape", [(96, 128, 3), (3, 96, 128), (96, 128)],
+                         ids=["hwc", "chw", "2d"])
+def test_metrics_on_card_match_cpu(cuda, shape):
+    from bmfr_tpu_torch.metrics import ssim
+
+    r = np.random.RandomState(len(shape))
+    a = torch.from_numpy(r.rand(*shape).astype(np.float32))
+    b = (a + 0.05 * torch.from_numpy(r.randn(*shape).astype(np.float32))
+         ).clamp(0, 1)
+    assert ssim(a.to(cuda), b.to(cuda)) == pytest.approx(ssim(a, b),
+                                                         abs=1e-9)
+    assert psnr(a.to(cuda), b.to(cuda)) == pytest.approx(psnr(a, b),
+                                                         abs=1e-9)
+
+
+def test_run_sweep_on_card_matches_cpu(cuda):
+    from bmfr_tpu_torch.fidelity import run_sweep, synthetic_scenes
+
+    scenes = synthetic_scenes(128, 96, 2)
+    base = bt.BMFRConfig(image_width=128, image_height=96,
+                         position_limit_squared=0.03,
+                         normal_limit_squared=0.5)
+    got = run_sweep(scenes, base, device=cuda)
+    want = run_sweep(scenes, base, device="cpu")
+    assert len(got) == len(want) == 44
+    for g, w in zip(got, want):
+        assert (g["scene"], g["config"]) == (w["scene"], w["config"])
+        assert g["noisy_psnr"] == w["noisy_psnr"]
+        for key in ("psnr_mean", "psnr_first", "psnr_last"):
+            assert g[key] == pytest.approx(w[key], abs=0.02), (w, key)
+        assert g["ssim_mean"] == pytest.approx(w["ssim_mean"], abs=1e-3)
+
+
+@pytest.mark.parametrize("path", ["default", "flagship"])
+def test_paths_meet_the_oracle_on_card(cuda, path):
+    from bmfr_tpu_torch import parity
+
+    cfg = bt.BMFRConfig(image_width=72, image_height=48,
+                        position_limit_squared=0.03,
+                        normal_limit_squared=0.5)
+    sc = synthetic_sequence(width=72, height=48, frames=4, scene="swing")
+    oracle = parity.oracle_frames(cfg, sc)
+    if path == "default":
+        port = parity.port_frames(cfg, sc, cuda)
+        for p, o in zip(port, oracle):
+            rec = parity.compare(p, o)
+            assert parity.default_faults(rec) == [], rec
+        return
+    port = parity.port_frames(cfg.replace(**bt.FLAGSHIP), sc, cuda)
+    bf16 = parity.oracle_frames(cfg, sc, round_state=parity.bf16_round)
+    assert parity.flagship_faults(
+        [parity.compare(p, o) for p, o in zip(port, oracle)],
+        [parity.compare(p, o) for p, o in zip(port, bf16)]) == []

@@ -91,9 +91,12 @@ def test_jittered_view_matches_blockify_view(tiny_cfg):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_synthetic_sequence_byte_equal():
-    want = jax_synthetic(width=40, height=24, frames=3, seed=7)
-    got = synthetic_sequence(width=40, height=24, frames=3, seed=7)
+@pytest.mark.parametrize("aa_samples", [1, 2])
+@pytest.mark.parametrize("scene", ["orbit", "corridor", "swing"])
+def test_synthetic_sequence_byte_equal(scene, aa_samples):
+    kw = dict(width=40, height=24, frames=3, seed=7, aa_samples=aa_samples,
+              scene=scene)
+    want, got = jax_synthetic(**kw), synthetic_sequence(**kw)
     assert sorted(got) == sorted(want)
     for k in want:
         assert got[k].dtype == want[k].dtype

@@ -128,6 +128,42 @@ def test_write_png_reads_back(tmp_path):
                                atol=1e-6)
 
 
+def test_reference_constants_match_jax():
+    for name in ("TUNI_SCENES", "BUFFER_NAMES", "REFERENCE_EXR_CANDIDATES",
+                 "OPENCL_PNG_CANDIDATES"):
+        assert getattr(dataset, name) == getattr(jax_dataset, name), name
+
+
+def test_load_references_finds_exr_and_png(tmp_path):
+    r = np.random.RandomState(0)
+    clean = r.rand(2, 16, 24, 3).astype(np.float32)
+    png = (r.rand(2, 16, 24, 3) * 255).astype(np.uint8)
+    (tmp_path / "outputs").mkdir()
+    for t in range(2):
+        native.write_exr(str(tmp_path / f"reference{t}.exr"), clean[t])
+        native.write_png(str(tmp_path / "outputs" / f"output{t}.png"),
+                         png[t])
+    sd = dataset.SceneDescriptor(path=str(tmp_path), frame_count=2,
+                                 width=24, height=16)
+    assert (sd.find_reference_exr(), sd.find_opencl_png()) == (
+        "reference", "outputs/output")
+    refs = sd.load_references(frames=[1, 0])
+    np.testing.assert_array_equal(refs["clean"], clean[::-1])
+    np.testing.assert_allclose(refs["opencl"], png[::-1] / 255.0, atol=1e-6)
+    want = jax_dataset.SceneDescriptor(path=str(tmp_path), frame_count=2,
+                                       width=24, height=16).load_references()
+    got = sd.load_references()
+    assert sorted(got) == sorted(want) == ["clean", "opencl"]
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_load_references_empty_when_absent(tmp_path):
+    sd = dataset.SceneDescriptor(path=str(tmp_path), frame_count=1)
+    assert sd.find_reference_exr() is None and sd.find_opencl_png() is None
+    assert sd.load_references() == {}
+
+
 def test_build_leaves_the_tracked_library_alone():
     tracked = REPO / "native" / "libbmfr_io.so"
     before = hashlib.sha256(tracked.read_bytes()).hexdigest()
