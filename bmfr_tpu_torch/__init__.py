@@ -6,9 +6,15 @@ The public surface is the same: channels-first ``[3, H, W]`` f32 planes
 and ``[T, 3, H, W]`` sequences, :class:`BMFRConfig`, :class:`FrameInputs`,
 :class:`TemporalState` and :class:`PackedState`, :func:`denoise_frame`,
 :func:`make_denoise_frame` and :func:`denoise_sequence`. It runs every
-configuration of the JAX package but two (:func:`config.check_supported`):
-the default ``BMFRConfig()`` (the reference-exact Householder path) and
-the JAX package's flagship (:data:`config.FLAGSHIP`) among them.
+configuration of the JAX package but one, a TPU measurement knob
+(:func:`config.check_supported`): the default ``BMFRConfig()`` (the
+reference-exact Householder path), the JAX package's flagship
+(:data:`config.FLAGSHIP`) and any registered feature basis
+(:func:`.features.register_feature`) on every fitter among them.
+Scene-parallel denoising over a mesh of devices is
+:func:`denoise_scenes_sharded` (:mod:`.parallel`), and
+:mod:`.graft_entry` holds the counterparts of the JAX package's
+``__graft_entry__.py``.
 
 It also runs the user journey of the reference binary: TUNI scene
 directories read from disk (:mod:`.io.dataset` over the native C++ IO
@@ -31,6 +37,7 @@ denoise path. This package imports neither JAX nor :mod:`bmfr_tpu`.
 
 from .checkpoint import load_state, save_state
 from .config import FLAGSHIP, BMFRConfig, config_from_jax
+from .features import register_feature
 from .pipeline.denoise import (FrameInputs, PackedState, denoise_frame,
                                denoise_sequence, frame_inputs_from_numpy,
                                make_denoise_frame, packed_state_from_jax,
@@ -38,6 +45,8 @@ from .pipeline.denoise import (FrameInputs, PackedState, denoise_frame,
 from .pipeline.state import TemporalState, temporal_state_from_jax
 from .pipeline.streaming import (make_chunk_runner, stream_scene,
                                  stream_scenes)
+from .parallel import (denoise_scenes_jit, denoise_scenes_sharded,
+                       make_scene_mesh)
 
 __all__ = [
     "BMFRConfig",
@@ -47,12 +56,16 @@ __all__ = [
     "TemporalState",
     "config_from_jax",
     "denoise_frame",
+    "denoise_scenes_jit",
+    "denoise_scenes_sharded",
     "denoise_sequence",
     "frame_inputs_from_numpy",
     "load_state",
     "make_chunk_runner",
     "make_denoise_frame",
+    "make_scene_mesh",
     "packed_state_from_jax",
+    "register_feature",
     "save_state",
     "stream_scene",
     "stream_scenes",

@@ -5,11 +5,9 @@ field names, same defaults, same derived geometry — so a JAX
 configuration carries over field by field (:func:`config_from_jax`).
 
 The port runs every configuration the JAX package's ``validate``
-accepts, with two exceptions that :func:`check_supported` rejects with
-``NotImplementedError`` naming their ROADMAP item: a custom feature
-basis with ``fitter_impl="pallas_direct"`` (the direct fitter kernels
-evaluate the default basis in code) and ``warp_tier_impl=
-"steady_only"`` (a TPU measurement knob).
+accepts but one, which :func:`check_supported` rejects with
+``NotImplementedError``: ``warp_tier_impl="steady_only"``, a TPU
+measurement knob with no GPU counterpart.
 """
 
 from __future__ import annotations
@@ -154,21 +152,16 @@ FLAGSHIP = dict(warp_mode="pallas", fitter_impl="pallas_direct",
 
 
 def check_supported(cfg: BMFRConfig) -> BMFRConfig:
-    """Validate ``cfg`` and raise ``NotImplementedError`` for the two
-    configurations the port does not run."""
+    """Validate ``cfg`` and raise ``NotImplementedError`` for the one
+    configuration the port does not run."""
     cfg.validate()
-    if (cfg.fitter_impl == "pallas_direct"
-            and cfg.all_features != DEFAULT_FEATURES):
-        raise NotImplementedError(
-            "a custom feature basis with fitter_impl='pallas_direct' is "
-            "not ported yet (the direct fitter kernels evaluate the "
-            "default basis in code); ROADMAP Queue 2 #6")
     if cfg.warp_tier_impl == "steady_only":
         # the GPU warp has no tiers: "switch" and "steady_cond" are
         # value-identical on the TPU and both equal the exact tier here
         raise NotImplementedError(
-            "warp_tier_impl='steady_only' is a TPU measurement knob with "
-            "no GPU counterpart; ROADMAP Queue 1 #9")
+            "warp_tier_impl='steady_only' is TPU-only: a measurement knob "
+            "of the TPU warp's tiers (it keeps stale taps on a teleport "
+            "frame) with no GPU counterpart; ROADMAP Queue 1 #9")
     return cfg
 
 

@@ -2,9 +2,12 @@
 
 Port of :mod:`bmfr_tpu.features` on torch tensors. A feature is a named
 function ``(normals[3, ...], positions[3, ...]) -> f32[...]``
-(opencl/bmfr.cl:448-453 and :727-729). The fitter kernel evaluates the
-default basis in its own code; this registry is what its plain version
-evaluates.
+(opencl/bmfr.cl:448-453 and :727-729); users add their own with
+:func:`register_feature`. Every fitter path evaluates this registry: the
+plain versions, kernel D's blocks and, for any basis but the default
+one, the planes the direct kernels B and C stage
+(:mod:`~bmfr_tpu_torch.ops.fitter_direct`). The direct kernels build the
+default basis in their own code from the raw planes.
 """
 
 from __future__ import annotations
@@ -23,6 +26,16 @@ FEATURE_REGISTRY = {
     "world_position_y2": lambda n, p: p[1] * p[1],
     "world_position_z2": lambda n, p: p[2] * p[2],
 }
+
+
+def register_feature(name: str, fn):
+    """Register a feature ``fn(normals, positions) -> [H, W]`` under a
+    name (``bmfr_tpu/features.py:23-26``). ``fn`` must be a per-pixel
+    function of the pixel's own normal and position: the direct kernels
+    evaluate it on the image and address the result as they address the
+    raw planes."""
+    FEATURE_REGISTRY[name] = fn
+    return fn
 
 
 def evaluate_features(names, normals, positions):

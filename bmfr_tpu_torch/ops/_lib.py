@@ -11,19 +11,22 @@ fallback.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("warp_blend.cu", "fitter_chol.cu", "householder_blocks.cu",
-           "householder_blocks_smem.cu", "householder_direct.cu",
+SOURCES = ("warp_blend.cu", "fitter_chol.cu", "fitter_chol_basis.cu",
+           "householder_blocks.cu", "householder_blocks_smem.cu",
+           "householder_direct.cu", "householder_direct_basis.cu",
            "warp_rows.cu")
 HEADERS = ("fitter_front.cuh", "householder.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -43,6 +46,14 @@ _SIGNATURES = {
     # blocks_y, frame, mode, noise_amp, stream
     "bmfr_fit_direct_householder": (_P,) * 6 + (_I,) * 4 + (_P, _I, _F,
                                                             _P),
+    # feats, accum, out, weights, H, W, blocks_x, blocks_y, F, lo, frame,
+    # mode, noise_amp, stream (any basis: the planes of its F features)
+    "bmfr_fit_reconstruct_cholesky_basis": (_P,) * 4 + (_I,) * 6 + (
+        _P, _I, _F, _P),
+    # feats, accum, out, weights, mins_maxs, H, W, blocks_x, blocks_y, F,
+    # lo, frame, mode, noise_amp, stream
+    "bmfr_fit_direct_householder_basis": (_P,) * 5 + (_I,) * 6 + (
+        _P, _I, _F, _P),
     # tmp, weights, mins_maxs, nb, B, lo, bp, mode, group, blocks_per_cta,
     # smem, frame, noise_amp, stream
     "bmfr_fit_blocks_registers": (_P,) * 3 + (_I,) * 8 + (_P, _F, _P),
@@ -142,6 +153,35 @@ def launch(name, *args):
         err = getattr(library(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+_COUNT_LOCK = threading.Lock()
+_TALLY = threading.local()
+
+
+def count_launch(fn, n=1):
+    """Add ``n`` launches to kernel wrapper ``fn``'s count (``fn.launches``;
+    under a lock: several threads launch at once). Inside
+    :func:`tally_launches` on this thread the launches go to the tally
+    instead: a captured launch runs at each replay, not now."""
+    tally = getattr(_TALLY, "counts", None)
+    if tally is not None:
+        tally[fn] = tally.get(fn, 0) + n
+        return
+    with _COUNT_LOCK:
+        fn.launches += n
+
+
+@contextlib.contextmanager
+def tally_launches():
+    """Count this thread's launches into a dict of their own, by wrapper,
+    for the duration of the block (the compiled step's capture)."""
+    prev = getattr(_TALLY, "counts", None)
+    _TALLY.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _TALLY.counts = prev
 
 
 def check_tensor(t, name, dtype, shape, device):

@@ -12,6 +12,8 @@ view is a gather by mirrored indices.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from ..features import evaluate_features
@@ -29,8 +31,11 @@ def storage_dtype(cfg):
 
 #: the jitter table on each device it was asked for, by (device,
 #: block_edge): built once (in an eager step, before any capture), then
-#: read by index on the device
+#: read by index on the device. Built under a lock: a captured graph reads
+#: the table's memory without holding the tensor, so a second table made
+#: by a racing thread would free the one a graph captured
 _TABLES = {}
+_TABLES_LOCK = threading.Lock()
 
 
 def jitter_offset(frame, block_edge: int = 32):
@@ -46,13 +51,15 @@ def jitter_offset(frame, block_edge: int = 32):
              else (BLOCK_OFFSETS * block_edge) // 32)
     if isinstance(frame, torch.Tensor):
         key = (frame.device, block_edge)
-        if key not in _TABLES:
-            _TABLES[key] = torch.as_tensor(table, dtype=torch.int64,
-                                           device=frame.device)
+        with _TABLES_LOCK:
+            tab = _TABLES.get(key)
+            if tab is None:
+                tab = _TABLES[key] = torch.as_tensor(
+                    table, dtype=torch.int64, device=frame.device)
         # index_select, not [tensor]: indexing by a 0-d tensor reads it on
         # the host
         k = torch.remainder(frame.to(torch.int64), len(table)).reshape(1)
-        off = _TABLES[key].index_select(0, k)[0]
+        off = tab.index_select(0, k)[0]
         return off[0], off[1]
     ox, oy = table[int(frame) % len(table)]
     return int(ox), int(oy)

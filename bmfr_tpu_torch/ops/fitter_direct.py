@@ -28,6 +28,19 @@ unsanitized, noise-free f32 features and writes the image directly,
 which replaces the JAX pipeline's inverse-jitter slice
 (``pipeline/denoise.py:218-225``).
 
+Any other feature basis (``cfg.all_features`` not the default, 4..16
+columns, features + colours) takes the basis front of the same kernels
+(``csrc/fitter_chol_basis.cu``, ``csrc/householder_direct_basis.cu``):
+the wrapper evaluates the basis with the registry
+(:func:`~bmfr_tpu_torch.features.evaluate_features`) into f32 planes
+``[F, H, W]``, and the kernel stages those planes and the accumulated
+colour through the same mirrored, jittered addressing, in place of the
+raw planes (a feature is a per-pixel function, so evaluating before the
+mirror equals evaluating after it). The K1 store contract, the rescale
+of the scaled features (those from ``features_not_scaled_count`` on),
+the noise (none on feature 0) and the reconstruction from the
+pre-rounding planes are the default front's.
+
 The plain versions are the block path the JAX tests hold the direct
 kernels to (``tests/test_fitter_direct.py``): ``build_feature_blocks``
 -> ``fit_blocks`` (plain, Cholesky or Householder) ->
@@ -39,11 +52,12 @@ from __future__ import annotations
 import torch
 
 from ..config import DEFAULT_FEATURES
+from ..features import evaluate_features
 from ..rng import noise_amp
 from . import _lib
 from .blockify import build_feature_blocks
 from .fitter import fit_blocks_reference
-from .fitter_pallas import MODE
+from .fitter_pallas import MAX_BUFFERS, MIN_BUFFERS, MODE
 from .frame import frame_tensor
 from .weighted_sum import weighted_sum_image
 
@@ -53,10 +67,17 @@ BLOCK_EDGE = 32
 def _check_cfg(cfg):
     if cfg.block_edge != BLOCK_EDGE:
         raise NotImplementedError("the direct fitter needs 32x32 blocks")
-    if cfg.all_features != DEFAULT_FEATURES:
-        raise NotImplementedError(
-            "the direct fitter kernels evaluate the default feature basis "
-            "only (ROADMAP Queue 2 #6)")
+    if not MIN_BUFFERS <= cfg.buffer_count <= MAX_BUFFERS:
+        raise ValueError(f"the direct fitters take {MIN_BUFFERS}.."
+                         f"{MAX_BUFFERS} columns (features + colours), not "
+                         f"{cfg.buffer_count}")
+
+
+def basis_planes(cfg, normals, positions):
+    """The planes the basis front stages: ``cfg``'s features evaluated
+    on the image, f32 ``[F, H, W]``, contiguous."""
+    return evaluate_features(cfg.all_features, normals,
+                             positions).to(torch.float32).contiguous()
 
 
 def _fit_plain(cfg, solver, normals, positions, accum, frame):
@@ -85,10 +106,19 @@ def _launch_direct(name, cfg, normals, positions, accum, frame, *outs):
         _lib.check_tensor(t, label, torch.float32, (3, H, W), dev)
     ft = frame_tensor(frame, dev)
     ptr = [0 if t is None else t.data_ptr() for t in outs]
-    _lib.launch(name, normals.data_ptr(), positions.data_ptr(),
-                accum.data_ptr(), *ptr, H, W, cfg.blocks_x, cfg.blocks_y,
-                ft.data_ptr(), MODE[cfg.tmp_data_dtype],
-                noise_amp(cfg.noise_amount))
+    tail = (ft.data_ptr(), MODE[cfg.tmp_data_dtype],
+            noise_amp(cfg.noise_amount))
+    if cfg.all_features == DEFAULT_FEATURES:
+        _lib.launch(name, normals.data_ptr(), positions.data_ptr(),
+                    accum.data_ptr(), *ptr, H, W, cfg.blocks_x,
+                    cfg.blocks_y, *tail)
+        return
+    # the basis front: the planes live until the kernel has read them
+    # (the caching allocator reuses them only in this stream's order)
+    feats = basis_planes(cfg, normals, positions)
+    _lib.launch(name + "_basis", feats.data_ptr(), accum.data_ptr(), *ptr,
+                H, W, cfg.blocks_x, cfg.blocks_y, cfg.feature_count,
+                cfg.features_not_scaled_count, *tail)
 
 
 def _device(fn_name, t):
@@ -131,7 +161,7 @@ def fit_reconstruct_cholesky(cfg, normals, positions, accum, frame):
     out, w, _ = _outputs(cfg, dev)
     _launch_direct("bmfr_fit_reconstruct_cholesky", cfg, normals,
                    positions, accum, frame, out, w)
-    fit_reconstruct_cholesky.launches += 1
+    _lib.count_launch(fit_reconstruct_cholesky)
     return out, w
 
 
@@ -157,7 +187,7 @@ def fit_reconstruct_direct(cfg, normals, positions, accum, frame):
     out, w, _ = _outputs(cfg, dev)
     _launch_direct("bmfr_fit_direct_householder", cfg, normals, positions,
                    accum, frame, out, w, None)
-    fit_reconstruct_direct.launches += 1
+    _lib.count_launch(fit_reconstruct_direct)
     return out, w
 
 
@@ -183,7 +213,7 @@ def fit_blocks_direct(cfg, normals, positions, accum, frame):
     _, w, mm = _outputs(cfg, dev, image=False, mins_maxs=True)
     _launch_direct("bmfr_fit_direct_householder", cfg, normals, positions,
                    accum, frame, None, w, mm)
-    fit_blocks_direct.launches += 1
+    _lib.count_launch(fit_blocks_direct)
     return w, mm
 
 

@@ -133,7 +133,7 @@ def fit_blocks_pallas(cfg, tmp_blocks, frame):
     else:
         _lib.launch("bmfr_fit_blocks_shared", *ptrs, geo.reg_columns,
                     geo.smem_bytes, ft.data_ptr(), amp)
-    fit_blocks_pallas.launches += 1
+    _lib.count_launch(fit_blocks_pallas)
     return weights, mins_maxs
 
 

@@ -115,7 +115,7 @@ def warp_rows(src, iy, ix):
     row1 = torch.empty_like(src)
     _lib.launch("bmfr_warp_rows", src.data_ptr(), iy.data_ptr(),
                 ix.data_ptr(), row0.data_ptr(), row1.data_ptr(), C, H, W)
-    warp_rows.launches += 1
+    _lib.count_launch(warp_rows)
     return row0, row1
 
 

@@ -155,7 +155,7 @@ def warp_blend(cfg, src8, positions, normals, pfx, pfy):
                 out.data_ptr(), H, W,
                 float(np.float32(cfg.position_limit_squared)),
                 float(np.float32(cfg.normal_limit_squared)))
-    warp_blend.launches += 1
+    _lib.count_launch(warp_blend)
     return out
 
 

@@ -20,14 +20,21 @@ them.
   (eagerly its planes are this frame's own tensors, the input planes
   among them, which the next frame's copy-in would overwrite). A state
   from elsewhere is copied into the carry once.
-- Capture: the first call of a (state type, card) runs its frame eagerly
-  on the static buffers (which also loads the kernel library and makes
-  every one-time setting), then captures the same step on a stream of
-  its own. A capture that fails raises: on a card nothing falls back to
-  the eager step.
+- Capture: the first call of a (state type, card, number of scenes)
+  runs its frame eagerly on the static buffers (which also loads the
+  kernel library and makes every one-time setting), then captures the
+  same step on a stream of its own. A capture that fails raises: on a
+  card nothing falls back to the eager step.
+- Several scenes (:meth:`CompiledStep.run_scenes`, the scene-parallel
+  runner of :mod:`~bmfr_tpu_torch.parallel`): one graph holds their
+  steps back to back, each scene in a slot of its own (static buffers
+  and carry). A carry never serves two scenes: a donated state is the
+  carry itself, and the carry is found by the identity of its tensors.
 - Launch counters: the kernel wrappers count their launches in Python,
-  which a replay does not run; each replay adds the captured step's
-  counts, so the counts read as if the step ran eagerly.
+  which a replay does not run; the capture tallies its launches apart
+  (:func:`~bmfr_tpu_torch.ops._lib.tally_launches`, per thread) and each
+  replay adds them, so the counts read as if the step ran eagerly, also
+  while other threads launch.
 
 The same kernels run in the same order with the same inputs, so a replay
 equals the eager step bit for bit.
@@ -42,6 +49,7 @@ import time
 import torch
 
 from ..config import check_supported
+from ..ops import _lib
 from ..ops.fitter_direct import (fit_blocks_direct, fit_reconstruct_cholesky,
                                  fit_reconstruct_direct)
 from ..ops.fitter_pallas import fit_blocks_pallas
@@ -82,8 +90,9 @@ def _check(t, name, shape, dtype, device):
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-class _Graph:
-    """One captured step: its static buffers, its carry and its graph."""
+class _Slot:
+    """One scene's place in a captured step: its static buffers and its
+    carry."""
 
     def __init__(self, cfg, state_type, device):
         H, W = cfg.image_height, cfg.image_width
@@ -100,8 +109,6 @@ class _Graph:
             # distinct buffers: initial() shares one zero plane
             self.carry = TemporalState(*(t.clone() for t in self.carry))
         self.current = None     # the state whose values the carry holds
-        self.graph = self.outputs = self.counts = None
-        self.capture_s = None
 
     def body(self):
         """The steady step on the static buffers, the carry written
@@ -120,7 +127,9 @@ class _Graph:
         return (self.current is not None
                 and all(a is b for a, b in zip(state, self.current)))
 
-    def step(self, state, inputs, prev_cam, pixel_offset, frame, donate):
+    def load(self, state, inputs, prev_cam, pixel_offset, frame):
+        """Fill the static buffers (and the carry, unless it already holds
+        ``state``) on the card."""
         cfg, dev = self.cfg, self.device
         H, W = cfg.image_height, cfg.image_width
         if not self._holds(state):
@@ -140,30 +149,54 @@ class _Graph:
         else:
             self.frame.fill_(int(frame))
 
+    def hand_out(self, donate):
+        """The state after the step: the carry itself, or a copy."""
+        self.current = (self.carry if donate else
+                        type(self.carry)(*(t.clone() for t in self.carry)))
+        return self.current
+
+
+class _Graph:
+    """One captured step of one or more scenes: a slot per scene (its own
+    buffers and carry) and one graph that runs their steps back to
+    back."""
+
+    def __init__(self, cfg, state_type, device, scenes=1):
+        self.slots = [_Slot(cfg, state_type, device) for _ in range(scenes)]
+        self.device = device
+        self.graph = self.outputs = self.counts = None
+        self.capture_s = None
+
+    def body(self):
+        return [slot.body() for slot in self.slots]
+
+    def step(self, calls, donate):
+        """``calls``: one ``(state, inputs, prev_cam, pixel_offset,
+        frame)`` per slot. Returns one ``(state, outputs)`` per slot."""
+        for slot, args in zip(self.slots, calls):
+            slot.load(*args)
         if self.graph is None:
             # this frame eagerly (the one-time setup runs here), then the
             # capture, whose launches the counters must not keep
             outputs = self.body()
-            before = [fn.launches for fn in COUNTED]
             t0 = time.perf_counter()
-            self.graph, self.outputs = capture(self.body, dev)
+            with _lib.tally_launches() as tally:
+                self.graph, self.outputs = capture(self.body, self.device)
             self.capture_s = time.perf_counter() - t0
-            self.counts = [fn.launches - n for fn, n in zip(COUNTED, before)]
-            for fn, n in zip(COUNTED, before):
-                fn.launches = n
+            self.counts = [tally.get(fn, 0) for fn in COUNTED]
         else:
             self.graph.replay()
             for fn, n in zip(COUNTED, self.counts):
-                fn.launches += n
+                _lib.count_launch(fn, n)
             outputs = self.outputs
-        self.current = (self.carry if donate else
-                        type(self.carry)(*(t.clone() for t in self.carry)))
-        return self.current, outputs
+        return [(slot.hand_out(donate), out)
+                for slot, out in zip(self.slots, outputs)]
 
 
 class CompiledStep:
     """The steady step of ``cfg`` (frames with history) as a replayed CUDA
-    graph, one per state type and card, captured at its first call.
+    graph, one per state type, card and number of scenes, captured at its
+    first call.
 
     ``run(state, inputs, prev_cam, pixel_offset, frame) -> (state,
     outputs)`` takes what :func:`~bmfr_tpu_torch.pipeline.denoise.
@@ -174,6 +207,14 @@ class CompiledStep:
     updated in place by the next call (JAX's donated carry);
     ``donate=False``: a copy of it, and every state the caller holds
     stays intact. One step object serves one thread at a time.
+
+    ``run_scenes(calls)`` steps several scenes of one card at once, the
+    counterpart of the JAX package's ``vmap`` over scenes inside its
+    ``lax.scan`` (``bmfr_tpu/parallel/sharding.py:52-58``): ``calls``
+    holds one argument tuple of ``run`` per scene, and one graph runs the
+    scenes' steps back to back, each scene with its own static buffers
+    and carry (a carry serves one scene: a donated state is the carry
+    itself). It returns one ``(state, outputs)`` per scene.
     """
 
     def __init__(self, cfg, donate=True):
@@ -182,24 +223,36 @@ class CompiledStep:
         self._graphs = {}
 
     def run(self, state, inputs, prev_cam, pixel_offset, frame):
-        dev = inputs.noisy.device
+        (out,) = self.run_scenes([(state, inputs, prev_cam, pixel_offset,
+                                   frame)])
+        return out
+
+    def run_scenes(self, calls):
+        if not calls:
+            raise ValueError("run_scenes needs at least one scene")
+        state_type = type(calls[0][0])
+        dev = calls[0][1].noisy.device
+        for state, inputs, *_ in calls:
+            if inputs.noisy.device != dev or type(state) is not state_type:
+                raise ValueError("the scenes of one step share their card "
+                                 "and their state type")
         if dev.type != "cuda":
             raise ValueError(f"the compiled step runs on a card, not {dev} "
                              "(denoise_frame runs the step eagerly)")
-        if isinstance(state, PackedState) and self.cfg.warp_mode != "pallas":
+        if state_type is PackedState and self.cfg.warp_mode != "pallas":
             raise ValueError("a PackedState needs warp_mode='pallas'")
-        key = (type(state), dev)
+        key = (state_type, dev, len(calls))
         g = self._graphs.get(key)
         if g is None:
-            g = self._graphs[key] = _Graph(self.cfg, type(state), dev)
-        return g.step(state, inputs, prev_cam, pixel_offset, frame,
-                      self.donate)
+            g = self._graphs[key] = _Graph(self.cfg, state_type, dev,
+                                           len(calls))
+        return g.step(calls, self.donate)
 
     @property
     def capture_seconds(self):
         """Seconds each capture took (capture and instantiation), by
-        (state type name, device)."""
-        return {(k[0].__name__, str(k[1])): g.capture_s
+        (state type name, device, number of scenes)."""
+        return {(k[0].__name__, str(k[1]), k[2]): g.capture_s
                 for k, g in self._graphs.items()}
 
 

@@ -52,7 +52,7 @@ def _chunk_ranges(total, chunk):
     return [(s, min(s + chunk, total)) for s in range(0, total, chunk)]
 
 
-def _resolve_device(device):
+def resolve_device(device):
     """``device`` as a torch device; None is the first card. Raises for a
     card when there is none (no silent CPU fallback) and for any device
     other than the CPU or a card."""
@@ -69,10 +69,10 @@ def _resolve_device(device):
 
 
 @contextlib.contextmanager
-def _on(dev, stream):
-    """Make ``dev`` and ``stream`` current in this thread (nothing on the
-    CPU): the kernels launch on the current stream of the current
-    device."""
+def on_device(dev, stream=None):
+    """Make ``dev`` and ``stream`` (None: the card's current stream)
+    current in this thread (nothing on the CPU): the kernels launch on
+    the current stream of the current device."""
     if dev.type != "cuda":
         yield
         return
@@ -144,7 +144,7 @@ def stream_scene(cfg, scene=None, chunk_frames=10, device=None, loader=None,
     """
     if chunk_frames < 1:
         raise ValueError(f"chunk_frames must be >= 1, got {chunk_frames}")
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     cuda = dev.type == "cuda"
     T = frame_count if frame_count is not None else scene.frame_count
     H, W = cfg.image_height, cfg.image_width
@@ -166,7 +166,7 @@ def stream_scene(cfg, scene=None, chunk_frames=10, device=None, loader=None,
         else:
             data = scene.load_frames(frames=frames)
         decode_s = time.perf_counter() - t0
-        with _on(dev, copy):
+        with on_device(dev, copy):
             # channels-first on the copy stream: the host only decodes
             up = [_upload(data[k], dev).permute(0, 3, 1, 2).contiguous()
                   for k in _BUFFERS]
@@ -186,7 +186,7 @@ def stream_scene(cfg, scene=None, chunk_frames=10, device=None, loader=None,
 
     ranges = _chunk_ranges(T, chunk_frames)
     events = []
-    with ThreadPoolExecutor(max_workers=1) as ex, _on(dev, compute):
+    with ThreadPoolExecutor(max_workers=1) as ex, on_device(dev, compute):
         out = torch.empty((T, 3, H, W), dtype=torch.float32,
                           pin_memory=cuda)
         state = TemporalState.initial(cfg, dev)

@@ -182,7 +182,7 @@ def stage_report(cfg, state, inputs, cam, off, reps, device):
             return outputs["result"]
 
         capture_s = compiled.capture_seconds[
-            (type(state).__name__, str(device))]
+            (type(state).__name__, str(device), 1)]
         run("full frame, compiled (CUDA graph)", replay,
             f" [capture {capture_s:.3f} s]")
     else:

@@ -53,10 +53,27 @@ and SSIM to 1e-3, ``tmp_f16`` to 0.1 dB and 2e-3); ``[fidelity
 row above its noisy input, the flagships within 0.1 dB of the default
 path); ``[oracle]`` holds the default path and the flagship to the
 port's copy of the NumPy oracle at 72x48x4 on orbit, corridor and swing
-(``bmfr_tpu_torch/parity.py``). The last line is
-the JSON contract ``{"ok": true, "device": {...}}``; any failed check
-exits non-zero before it. Without a CUDA device it exits non-zero at
-once.
+(``bmfr_tpu_torch/parity.py``).
+
+The later slices' phases: ``[basis B]`` and ``[basis C]`` hold kernels B
+and C on feature bases of 4, 7, 10 (first order) and 16 columns (three
+cross terms registered with ``register_feature``) to their plain
+versions at 1280x720 on f32, f16 and bf16 tmp, each with its device ms,
+its bound over the (F + 3) planes and the default-basis kernel's ms in
+the same call; ``[path flagship first_order]`` drives the flagship on
+the first-order basis like the other paths; ``[scenes]`` renders three
+more 1280x720x16 scenes (an orbit seed, corridor, swing) and runs the
+flagship and the default path through ``denoise_scenes_sharded`` over
+1, 2 and 4 scenes of the card and 4 on a mesh that names the card twice
+(bit-equal to the per-scene ``denoise_sequence``, launch counts held),
+timing each card-frame of S scenes (one graph of S steps); ``[entry]``
+runs ``graft_entry.entry()``'s step eagerly, captured and replayed
+(equal); ``[dryrun]`` runs ``dryrun_multichip`` on the card and on a
+mesh naming it four times (every scene equal to its per-scene run).
+
+The last line is the JSON contract ``{"ok": true, "device": {...}}``;
+any failed check exits non-zero before it. Without a CUDA device it
+exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -75,7 +92,7 @@ import bmfr_tpu_torch as bt
 from bmfr_tpu_torch.io import native
 from bmfr_tpu_torch.io.dataset import discover_scenes
 from bmfr_tpu_torch.io.export import export_scene, write_camera_header
-from bmfr_tpu_torch import parity
+from bmfr_tpu_torch import graft_entry, parity
 from bmfr_tpu_torch.fidelity import (device_name, print_report, run_sweep,
                                      synthetic_scenes)
 from bmfr_tpu_torch.io.fixtures import synthetic_sequence
@@ -256,18 +273,24 @@ def kernels_launched(fn):
     return n or None
 
 
-def lstsq_yardstick(cfg, tmp, w_kernel, frame):
-    """Time ``torch.linalg.lstsq`` on the rescaled, noised f32 system that
-    kernel D fits (A ``[n_blocks, bp, F]``, b ``[n_blocks, bp, 3]``), the
-    one PyTorch call that computes the same least-squares weights. Returns
-    (ms per call, relative norm of its weights from the kernel's)."""
+def stored_system(cfg, tmp, frame):
+    """The rescaled, noised f32 system that the fitters solve from the
+    blocks ``tmp``: A ``[n_blocks, bp, F]``, b ``[n_blocks, bp, 3]``."""
     F = cfg.feature_count
     data, _ = scale_blocks(cfg, tmp.float())
     data = storage_roundtrip(cfg, data)
     noise = feature_noise(frame, F, cfg.block_pixels, cfg.buffer_count,
                           cfg.noise_amount, tmp.device)
     A = (data[:, :F] + noise[None]).transpose(1, 2).contiguous()
-    b = data[:, F:].transpose(1, 2).contiguous()
+    return A, data[:, F:].transpose(1, 2).contiguous()
+
+
+def lstsq_yardstick(cfg, tmp, w_kernel, frame):
+    """Time ``torch.linalg.lstsq`` on the system that kernel D fits
+    (``stored_system``), the one PyTorch call that computes the same
+    least-squares weights. Returns (ms per call, relative norm of its
+    weights from the kernel's)."""
+    A, b = stored_system(cfg, tmp, frame)
     sol = torch.linalg.lstsq(A, b).solution
     rel = float((sol - w_kernel).norm() / w_kernel.norm())
     return cuda_ms(lambda: torch.linalg.lstsq(A, b), 10), rel
@@ -342,7 +365,7 @@ def check_weights(name, label, w, mm, wr, mmr, dtype):
     bad_mm = off_tolerance(mm, mmr, MM_TOL)
     err_w = float((w - wr).abs().max())
     rel = float((w - wr).norm() / wr.norm())
-    err_mm = float((mm - mmr).abs().max())
+    err_mm = float((mm - mmr).abs().max()) if mm.numel() else 0.0
     print(f"[{name}] {label}: weights max |err| {err_w:.3e}, relative norm "
           f"{rel:.3e} (elementwise off {tol:g}: {bad_w} of {w.numel()}), "
           f"mins/maxs max |err| {err_mm:.3e} (off: {bad_mm})")
@@ -874,9 +897,378 @@ def oracle_phase(dev):
     return rec
 
 
+#: [basis B] / [basis C]: the bases held against the plain versions (4, 7,
+#: 10 and 16 columns); the 16-column one adds three cross terms that the
+#: smoke registers, as a user would (``register_feature``)
+CROSS_FEATURES = {
+    "smoke_position_xy": lambda n, p: p[0] * p[1],
+    "smoke_position_yz": lambda n, p: p[1] * p[2],
+    "smoke_normal_xz": lambda n, p: n[0] * n[2],
+}
+BASES = {
+    "4 columns": dict(features_not_scaled=("const",), features_scaled=()),
+    "7 columns": dict(features_not_scaled=("const", "normal_x", "normal_y",
+                                           "normal_z"), features_scaled=()),
+    "first_order": dict(features_scaled=(
+        "world_position_x", "world_position_y", "world_position_z")),
+    "16 columns": dict(features_scaled=(
+        "world_position_x", "world_position_y", "world_position_z",
+        "world_position_x2", "world_position_y2", "world_position_z2",
+        *CROSS_FEATURES)),
+}
+#: [basis B]: PSNR at and above this is the f32 rounding of values near 1:
+#: two answers there are equally exact
+EXACT_DB = 140.0
+#: [scenes]: the scene counts per card and the mesh that repeats the card
+SCENE_COUNTS = (1, 2, 4)
+#: [dryrun]: the mesh that repeats the card
+DRYRUN_PLACES = 4
+
+
+def basis_bound(cfg, kernel):
+    """(ms, what bounds it) of a basis kernel: its F feature planes and 3
+    colour planes in, the image and the weights out; per view cell the
+    store, rescale and noise of each column (~10 operations) and B's Gram
+    sums (2 a sum) or C's reflections; per image pixel 6 F of the
+    reconstruction."""
+    F, NB = cfg.feature_count, cfg.buffer_count
+    H, W = cfg.image_height, cfg.image_width
+    cells = cfg.n_blocks * cfg.block_pixels
+    moved = 4 * (NB * H * W + 3 * H * W + cfg.n_blocks * F * 3)
+    if kernel == "B":
+        sums = F * NB - F * (F - 1) // 2
+        ops = (10 * NB + 2 * sums) * cells
+    else:
+        ops = qr_flops(cfg.n_blocks, cfg.block_pixels, NB) + 10 * NB * cells
+    return bound(moved, ops + 6 * F * H * W)
+
+
+def check_basis_b(cfg, cur, accum, frame):
+    """Kernel B on a basis against its plain version. f32: every value
+    within FIT_TOL; f16/bf16 tmp: as tests/test_torch_gpu.py holds B on
+    reduced precision, against the exact answer (the plain version with
+    its Gram sums in f64 on the same rounded data) on all but 0.1 % of
+    the values and no less accurate than the plain version (3 dB; both
+    PSNRs capped at EXACT_DB).
+    Returns (max |err| from plain, off-tolerance values)."""
+    from bmfr_tpu_torch.ops import fitter as fitter_mod
+
+    args = (cfg, cur.normals, cur.positions, accum, frame)
+    got, w = fit_reconstruct_cholesky(*args)
+    ref, wr = fit_reconstruct_cholesky_reference(*args)
+    torch.cuda.synchronize()
+    bad = off_tolerance(got, ref, FIT_TOL)
+    err = float((got - ref).abs().max())
+    zero = int((w == 0).all(dim=(1, 2)).sum())
+    zero_ref = int((wr == 0).all(dim=(1, 2)).sum())
+    line = (f"max |err| {err:.3e}, off-tolerance values {bad} of "
+            f"{got.numel()}, zero-weight blocks {zero} (plain {zero_ref})")
+    if cfg.tmp_data_dtype != "float32":
+        gram = fitter_mod.gram
+        fitter_mod.gram = lambda data, F: gram(data.double(), F).float()
+        try:
+            exact, _ = fit_reconstruct_cholesky_reference(*args)
+        finally:
+            fitter_mod.gram = gram
+        off = float((got - exact).abs().gt(FIT_TOL + FIT_TOL * exact.abs())
+                    .float().mean())
+        db_got = psnr(got.cpu().numpy(), exact.cpu().numpy())
+        db_ref = psnr(ref.cpu().numpy(), exact.cpu().numpy())
+        line += (f"; vs the f64-sum answer: off {100 * off:.4f} %, "
+                 f"{db_got:.2f} dB (plain {db_ref:.2f} dB)")
+        ok = (off <= 1e-3 and zero == zero_ref
+              and min(db_got, EXACT_DB) >= min(db_ref, EXACT_DB) - 3.0)
+    else:
+        ok = bad == 0 and zero == zero_ref
+    print(f"[basis B] {line}")
+    require(ok, f"basis B {cfg.all_features} {cfg.tmp_data_dtype}: {line}")
+    require(bool(torch.isfinite(got).all()), "basis B: non-finite")
+    return err, bad
+
+
+def check_basis_c(cfg, cur, accum, frame):
+    """Kernel C on a basis against its plain version, both entries: the
+    reconstruction within FIT_TOL and the mins/maxs to MM_TOL; the
+    weights to WEIGHT_TOL on f32 tmp (``check_weights``). On f16/bf16 tmp
+    the storage rounding after every reflection makes single weights of
+    ill-conditioned blocks move with the summation order alone (PERF.md,
+    PR 2), so there the weights are held, as B's rule holds its
+    reconstruction, to be no less exact than the plain version's: their
+    relative distance from the f64 least-squares weights of the same
+    stored system at most sqrt(2) (3 dB) times the plain version's.
+    Returns (max |err| of the reconstruction, off-tolerance values)."""
+    planes = (cur.normals, cur.positions, accum)
+    got, _ = fit_reconstruct_direct(cfg, *planes, frame)
+    ref, _ = fit_reconstruct_direct_reference(cfg, *planes, frame)
+    w, mm = fit_blocks_direct(cfg, *planes, frame)
+    wr, mmr = fit_blocks_direct_reference(cfg, *planes, frame)
+    torch.cuda.synchronize()
+    bad = off_tolerance(got, ref, FIT_TOL)
+    err = float((got - ref).abs().max())
+    print(f"[basis C] reconstruction max |err| {err:.3e}, off-tolerance "
+          f"values {bad} of {got.numel()}")
+    require(bad == 0, f"basis C {cfg.all_features} {cfg.tmp_data_dtype}: "
+            f"{bad} values off tolerance")
+    require(bool(torch.isfinite(got).all()), "basis C: non-finite")
+    dtype = cfg.tmp_data_dtype
+    if dtype == "float32":
+        check_weights("basis C", "blocks entry", w, mm, wr, mmr, dtype)
+        return err, bad
+    bad_mm = off_tolerance(mm, mmr, MM_TOL)
+    A, b = stored_system(cfg, build_feature_blocks(cfg, *planes, frame),
+                         frame)
+    exact = torch.linalg.lstsq(A.double(), b.double()).solution
+    d_got = float((w.double() - exact).norm() / exact.norm())
+    d_ref = float((wr.double() - exact).norm() / exact.norm())
+    rel = float((w - wr).norm() / wr.norm())
+    print(f"[basis C] blocks entry: weights' relative norm from plain "
+          f"{rel:.3e}; from the f64 least-squares weights {d_got:.3e} "
+          f"(plain {d_ref:.3e}); mins/maxs off {bad_mm}")
+    require(bad_mm == 0, f"basis C {dtype}: {bad_mm} mins/maxs off")
+    require(d_got <= 2 ** 0.5 * d_ref, f"basis C {cfg.all_features} "
+            f"{dtype}: weights {d_got:.3e} from exact, plain {d_ref:.3e}")
+    require(bool(torch.isfinite(w).all()), "basis C: non-finite weights")
+    return err, bad
+
+
+def basis_phase(flagship, cur, frame):
+    """``[basis B]`` and ``[basis C]``: kernels B and C on every basis of
+    BASES and every tmp dtype against their plain versions at 1280x720,
+    with each kernel's device ms per call, its bound over the (F + 3)
+    planes and the default-basis kernel's device ms in the same call."""
+    for name, fn in CROSS_FEATURES.items():
+        bt.register_feature(name, fn)
+    accum = cur.noisy
+    rec = {}
+    for kernel, solver, kname, default_name in (
+            ("B", "cholesky", "fit_chol_basis_kernel", "fit_chol_kernel"),
+            ("C", "householder", "fit_direct_basis_kernel",
+             "fit_direct_kernel")):
+        fit = (fit_reconstruct_cholesky if kernel == "B"
+               else fit_reconstruct_direct)
+        check = check_basis_b if kernel == "B" else check_basis_c
+        for dtype in ("float32", "float16", "bfloat16"):
+            base = flagship.replace(solver=solver, tmp_data_dtype=dtype)
+            default_ms = kernel_device_ms(
+                lambda: fit(base, cur.normals, cur.positions, accum, frame),
+                default_name)
+            for bname, kw in BASES.items():
+                cfg = base.replace(**kw)
+                print(f"[basis {kernel}] {bname} ({cfg.feature_count} "
+                      f"features, {cfg.buffer_count} columns), {dtype}:")
+                err, bad = check(cfg, cur, accum, frame)
+                dev_ms = kernel_device_ms(
+                    lambda: fit(cfg, cur.normals, cur.positions, accum,
+                                frame), kname)
+                call_ms = cuda_ms(lambda: fit(cfg, cur.normals,
+                                              cur.positions, accum, frame),
+                                  20)
+                b_ms, by = basis_bound(cfg, kernel)
+                print(f"[basis {kernel}] {gpu_line()}: {bname} {dtype}: "
+                      "kernel device "
+                      + ("not measured" if dev_ms is None else
+                         f"{dev_ms:.4f} ms ({100 * b_ms / dev_ms:.1f}% of "
+                         f"the bound {b_ms:.4f} ms, {by})")
+                      + f"; wrapper with the feature planes {call_ms:.4f} "
+                      f"ms; default-basis kernel in this call "
+                      + ("not measured" if default_ms is None
+                         else f"{default_ms:.4f} ms"))
+                rec[f"{kernel} {bname} {dtype}"] = dict(
+                    max_abs_err=err, off_tolerance=bad, device_ms=dev_ms,
+                    wrapper_ms=call_ms, bound_ms=b_ms, bound_by=by,
+                    default_basis_device_ms=default_ms)
+    return rec
+
+
+def render_scenes(sc):
+    """The [scenes] phase's four distinct 1280x720x16 scenes: the orbit
+    scene of the earlier phases, another orbit seed, corridor and swing
+    (the three new ones rendered on host threads at once)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    specs = (("orbit seed 1", dict(seed=1)),
+             ("corridor", dict(seed=3, scene="corridor")),
+             ("swing", dict(seed=5, scene="swing")))
+    with ThreadPoolExecutor(max_workers=len(specs)) as ex:
+        new = list(ex.map(lambda kw: synthetic_sequence(
+            width=WIDTH, height=HEIGHT, frames=FRAMES, **kw[1]), specs))
+    return [("orbit", sc)] + [(n, s) for (n, _), s in zip(specs, new)]
+
+
+def scene_batch(scenes, dev):
+    """The scenes as the scene-parallel entry takes them: FrameInputs of
+    ``[S, T, 3, H, W]``, cameras ``[S, T, 4, 4]``, offsets ``[S, T, 2]``."""
+    ups = [(bt.frame_inputs_from_numpy(s["normals"], s["positions"],
+                                       s["noisy"], s["albedo"], dev),
+            s["camera_matrices"], s["pixel_offsets"]) for _, s in scenes]
+    inputs = bt.FrameInputs(*(torch.stack([u[0][k] for u in ups])
+                              for k in range(4)))
+    cams = torch.from_numpy(np.stack([u[1] for u in ups])).to(dev)
+    offs = torch.from_numpy(np.stack([u[2] for u in ups])).to(dev)
+    return inputs, cams, offs
+
+
+def scenes_steady(cfg, inputs, cams, offs, S):
+    """Frames 1..15 of the first S scenes, each frame one
+    ``CompiledStep.run_scenes`` (one graph of S steps): ms per card-frame
+    (3 runs after a warm-up that captures), peak memory, capture seconds
+    and the device profile of one more run."""
+    dev = inputs.noisy.device
+    st0 = [bt.denoise_frame(cfg, bt.zero_state(cfg, dev),
+                            frame_of(bt.FrameInputs(*(x[s] for x in inputs)),
+                                     0), cams[s, 0], offs[s, 0], 0)[0]
+           for s in range(S)]
+    step = CompiledStep(cfg)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def run():
+        sts = list(st0)
+        start.record()
+        for t in range(1, FRAMES):
+            outs = step.run_scenes([
+                (sts[s], bt.FrameInputs(*(x[s, t] for x in inputs)),
+                 cams[s, t - 1], offs[s, t], t) for s in range(S)])
+            sts = [o[0] for o in outs]
+        end.record()
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    ms = []
+    for _ in range(3):
+        run()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end) / (FRAMES - 1))
+    peak = torch.cuda.max_memory_allocated()
+    prof = device_breakdown(f"scenes {cfg.fitter_impl} S={S}", run,
+                            FRAMES - 1)
+    return dict(ms_per_card_frame=ms, max_memory_allocated=peak,
+                above_resident=peak - resident,
+                capture_s=sum(step.capture_seconds.values()),
+                profile=prof)
+
+
+def scenes_phase(sc, flagship, exact, dev):
+    """``[scenes]``: the flagship and the default path over 1, 2 and 4
+    distinct 1280x720x16 scenes on the card, and 4 on a mesh that names
+    the card twice: every scene bit-equal to its own ``denoise_sequence``,
+    launch counts held, and per card-frame the steady ms, device busy
+    ms, kernels, capture seconds and peak memory."""
+    t0 = time.perf_counter()
+    scenes = render_scenes(sc)
+    render_s = time.perf_counter() - t0
+    inputs, cams, offs = scene_batch(scenes, dev)
+    print(f"[scenes] {', '.join(n for n, _ in scenes)} at {WIDTH}x{HEIGHT}x"
+          f"{FRAMES}: rendered in {render_s:.1f} s")
+    rec = dict(render_s=render_s)
+    for label, cfg, counters, per_frame in (
+            ("flagship", flagship,
+             {"warp_blend": warp_blend,
+              "fit_reconstruct_cholesky": fit_reconstruct_cholesky},
+             {"warp_blend": FRAMES - 1, "fit_reconstruct_cholesky": FRAMES}),
+            ("default", exact, {"fit_blocks_pallas": fit_blocks_pallas},
+             {"fit_blocks_pallas": FRAMES})):
+        refs = torch.stack([bt.denoise_sequence(
+            cfg, bt.FrameInputs(*(x[s] for x in inputs)), cams[s], offs[s])
+            for s in range(len(scenes))])
+        for S, places in [(S, 1) for S in SCENE_COUNTS] + [(4, 2)]:
+            mesh = bt.make_scene_mesh([dev] * places)
+            batch = (bt.FrameInputs(*(x[:S] for x in inputs)), cams[:S],
+                     offs[:S])
+            for fn in counters.values():
+                fn.launches = 0
+            t1 = time.perf_counter()
+            out = bt.denoise_scenes_sharded(cfg, mesh, *batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches = {k: fn.launches for k, fn in counters.items()}
+            want = {k: S * n for k, n in per_frame.items()}
+            same = bool(torch.equal(out, refs[:S]))
+            print(f"[scenes] {label} S={S} over {places} place(s) of "
+                  f"{dev}: {wall:.2f} s (first run: frame 0 and the "
+                  f"captures), launches {launches}, bit-equal to the "
+                  f"per-scene denoise_sequence: {same}")
+            require(launches == want, f"scenes {label} S={S}: launches "
+                    f"{launches}, expected {want}")
+            require(same, f"scenes {label} S={S} x{places}: differs from "
+                    f"the per-scene runs by "
+                    f"{float((out - refs[:S]).abs().max())}")
+            rec[f"{label} S={S} places={places}"] = dict(
+                launches=launches, first_run_s=wall, bit_equal=same)
+        for S in SCENE_COUNTS:
+            r = scenes_steady(cfg, inputs, cams, offs, S)
+            busy = (r["profile"] or {}).get("busy_ms_per_frame")
+            kpf = (r["profile"] or {}).get("kernels_per_frame")
+            print(f"[scenes] {gpu_line()}: {label} S={S}: steady ms per "
+                  "card-frame (3 runs) "
+                  + ", ".join(f"{m:.4f}" for m in r["ms_per_card_frame"])
+                  + f" ({min(r['ms_per_card_frame']) / S:.4f} a scene); "
+                  f"device busy {busy} ms, {kpf} kernels per card-frame; "
+                  f"capture {r['capture_s']:.3f} s; max_memory_allocated "
+                  f"{r['max_memory_allocated']} B, of it "
+                  f"{r['above_resident']} B above the resident scenes")
+            rec[f"{label} S={S} steady"] = r
+        del refs
+    rec["phase_s"] = time.perf_counter() - t0
+    print(f"[scenes] the phase took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def entry_phase():
+    """``[entry]``: ``graft_entry.entry()``'s step at 1280x720 on the
+    card, once eagerly (``denoise_frame``) and twice through ``fn`` (the
+    capture, then a replay), all three results equal."""
+    fn, args = graft_entry.entry()
+    cfg = graft_entry.entry_config()
+    eager = bt.denoise_frame(cfg, *args, history="always")[1]["result"]
+    for k in (warp_blend, fit_reconstruct_direct):
+        k.launches = 0
+    t0 = time.perf_counter()
+    _, first = fn(*args)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    _, again = fn(*args)
+    torch.cuda.synchronize()
+    launches = (warp_blend.launches, fit_reconstruct_direct.launches)
+    same = bool(torch.equal(first, eager)) and bool(torch.equal(again, eager))
+    ms = cuda_ms(lambda: fn(*args), 20)
+    print(f"[entry] {gpu_line()}: fn at {cfg.image_width}x"
+          f"{cfg.image_height} ({cfg.warp_mode} warp, {cfg.fitter_impl} "
+          f"{cfg.solver}): eager, captured ({capture_s:.2f} s with the "
+          f"capture) and replayed equal: {same}; launches A, C {launches}; "
+          f"{ms:.4f} ms a replayed call")
+    require(same, "entry: the captured step differs from the eager one")
+    require(launches == (2, 2), f"entry: launches {launches}")
+    require(tuple(first.shape) == (3, 720, 1280)
+            and bool(torch.isfinite(first).all()), "entry: result")
+    return dict(bit_equal=same, launches=launches, capture_s=capture_s,
+                ms_per_call=ms)
+
+
+def dryrun_phase(dev):
+    """``[dryrun]``: ``dryrun_multichip`` on the card alone, and on a mesh
+    that names it DRYRUN_PLACES times; every scene must equal its
+    per-scene run (0, below the JAX package's 1e-5)."""
+    rec = {}
+    for label, n, devices in (("1 card", 1, None),
+                              (f"{dev} x{DRYRUN_PLACES}", DRYRUN_PLACES,
+                               [dev] * DRYRUN_PLACES)):
+        t0 = time.perf_counter()
+        errs = graft_entry.dryrun_multichip(n, devices=devices)
+        s = time.perf_counter() - t0
+        print(f"[dryrun] {label}: max |diff| per config (xla, flagship "
+              f"householder, flagship cholesky bf16) {errs}; {s:.1f} s")
+        require(errs == [0.0, 0.0, 0.0], f"dryrun {label}: {errs}")
+        rec[label] = dict(max_abs_diff=errs, s=s)
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke FAIL: no CUDA device")
+    t_main = time.perf_counter()
     dev = torch.device("cuda:0")
     smi = gpu_line()
     print(f"[gpu] {smi}")
@@ -1071,7 +1463,12 @@ def main():
         print(f"[time] kernel {k}: device "
               + ("not measured" if m is None else f"{m:.4f} ms per call"))
 
-    # ---- the three paths ----
+    # ---- kernels B and C on other feature bases ----
+    t0 = time.perf_counter()
+    basis = basis_phase(flagship, c5, 5)
+    print(f"[basis] the phases took {time.perf_counter() - t0:.1f} s")
+
+    # ---- the paths ----
     paths = {}
     paths["flagship"] = run_path(
         "flagship", flagship, sc, inputs, cams, offs,
@@ -1087,6 +1484,12 @@ def main():
         {"warp_blend": warp_blend,
          "fit_reconstruct_direct": fit_reconstruct_direct},
         {"warp_blend": FRAMES - 1, "fit_reconstruct_direct": FRAMES})
+    paths["flagship first_order"] = run_path(
+        "flagship first_order", flagship.replace(**BASES["first_order"]),
+        sc, inputs, cams, offs,
+        {"warp_blend": warp_blend,
+         "fit_reconstruct_cholesky": fit_reconstruct_cholesky},
+        {"warp_blend": FRAMES - 1, "fit_reconstruct_cholesky": FRAMES})
 
     # launches per frame that the in-kernel hash saves: one torch noise
     # field per fitter launch before (B, D and C each made one per call)
@@ -1113,6 +1516,11 @@ def main():
     paths["stream"] = stream_phase(
         sc, inputs, cams, offs, flagship, exact, dev,
         (paths["flagship"]["profile"] or {}).get("kernels_per_frame"))
+
+    # ---- scene-parallel denoising, and the __graft_entry__ counterparts
+    paths["scenes"] = scenes_phase(sc, flagship, exact, dev)
+    paths["entry"] = entry_phase()
+    paths["dryrun"] = dryrun_phase(dev)
 
     # ---- kernel E's path: gather_taps(mode="pallas") over the default
     # path's warped states (no pipeline configuration reaches kernel E) ----
@@ -1181,10 +1589,11 @@ def main():
         entry("E", "warp_rows", "bmfr_tpu_torch/csrc/warp_rows.cu",
               "bmfr_tpu/ops/warp_pallas.py:276", e_launches),
     ]
-    print(json.dumps({"paths": paths, "build_s": build_s,
+    print(json.dumps({"paths": paths, "build_s": build_s, "basis": basis,
                       "kernel_device_ms": dev_ms,
                       "fit_blocks_direct_ms": ms["C blocks"]}))
     print(json.dumps({"kernels": kernels}))
+    print(f"[smoke] {time.perf_counter() - t_main:.1f} s, the build included")
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

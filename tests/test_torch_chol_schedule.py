@@ -79,6 +79,48 @@ def test_warp_schedule_equals_left_looking_bitwise(case):
         assert bool((want[:32] == 0).all())
 
 
+def basis_schedule_solve(G, nf):
+    """``csrc/fitter_chol_basis.cu``'s schedule for ``nf`` features: the
+    same factorization on lanes 0..nf+2, and the back solve one lane per
+    (colour, row) in passes of ``min(32 // nf, 3)`` colours."""
+    nb = nf + 3
+    a = [[G[:, min(r, c), max(r, c)] for c in range(nf)] for r in range(nb)]
+    for j in range(nf):
+        ljj = torch.sqrt(a[j][j])
+        for r in range(nb):
+            a[r][j] = ljj if r == j else a[r][j] / ljj
+        for r in range(nb):
+            for c in range(j + 1, nf):
+                a[r][c] = a[r][c] - a[r][j] * a[c][j]
+    cpp = min(32 // nf, 3)
+    w = torch.empty(G.shape[0], nf, 3, dtype=G.dtype)
+    for p in range(-(-3 // cpp)):
+        for ch in range(p * cpp, min(p * cpp + cpp, 3)):
+            x = [None] * nf
+            for s in reversed(range(nf)):
+                v = a[nf + ch][s]
+                for k in range(s + 1, nf):
+                    v = v - a[k][s] * x[k]
+                x[s] = v / a[s][s]
+            w[:, :, ch] = torch.stack(x, dim=1)
+    return torch.where(torch.isnan(w), 0.0, w)
+
+
+@pytest.mark.parametrize("nf", [1, 4, 7, 11, 13])
+def test_basis_schedule_equals_left_looking_bitwise(nf):
+    """The basis kernel's schedule (4..16 columns; two colours a pass
+    above 10 features) equals the plain left-looking loops bit for bit."""
+    r = np.random.default_rng(nf)
+    data = r.standard_normal((64, nf + 3, 256)).astype(np.float32)
+    if nf > 2:
+        data[:16, 2] = data[:16, 1]         # a repeated column: NaN -> 0
+    t = torch.from_numpy(data)
+    G = torch.einsum("bfe,bge->bfg", t[:, :nf], t)
+    got = basis_schedule_solve(G, nf)
+    want = cholesky_solve(G, nf)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def test_phase_script_stamps_every_phase():
     torch_chol_phases = phases_script()
     src = (ROOT / "bmfr_tpu_torch" / "csrc" / "fitter_chol.cu").read_text()

@@ -109,11 +109,12 @@ def test_plain_matches_jax_cholesky_origin_path(tiny_cfg, frame):
 
 
 def test_plain_rejects_unported_fitter_variants(tiny_cfg, scene_planes):
-    """What the direct fitters still reject: a custom feature basis (the
-    kernels evaluate the default basis in code). Reduced-precision tmp
-    storage, rejected before, now runs; the block fitter rejects the
-    Cholesky solver on its kernel with a ValueError, as the JAX one
-    does."""
+    """The variants the direct fitters once rejected now run: a custom
+    feature basis (rejected until the kernels gained a basis front) on
+    every entry, and reduced-precision tmp storage. What stays rejected:
+    blocks other than 32x32 on the direct fitters, and the Cholesky
+    solver on the block fitter's kernel (a ValueError, as the JAX one
+    raises)."""
     from bmfr_tpu_torch.ops.fitter import fit_blocks
     from bmfr_tpu_torch.ops.fitter_direct import (fit_blocks_direct,
                                                   fit_reconstruct_direct)
@@ -121,10 +122,15 @@ def test_plain_rejects_unported_fitter_variants(tiny_cfg, scene_planes):
     cfg = bt.config_from_jax(tiny_cfg)
     t = torch.from_numpy(scene_planes)
     custom = cfg.replace(features_scaled=("world_position_x",))
-    for fit in (fit_reconstruct_cholesky, fit_reconstruct_direct,
-                fit_blocks_direct):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fit(custom, t[0:3], t[3:6], t[6:9], 0)
+    for fit in (fit_reconstruct_cholesky, fit_reconstruct_direct):
+        out, w = fit(custom, t[0:3], t[3:6], t[6:9], 0)
+        assert w.shape == (cfg.n_blocks, 5, 3)
+        assert out.shape == t[0:3].shape and bool(torch.isfinite(out).all())
+    w, mm = fit_blocks_direct(custom, t[0:3], t[3:6], t[6:9], 0)
+    assert (w.shape, mm.shape) == ((cfg.n_blocks, 5, 3), (cfg.n_blocks, 1, 2))
+    with pytest.raises(NotImplementedError, match="32x32"):
+        fit_reconstruct_cholesky(cfg.replace(block_edge=16), t[0:3], t[3:6],
+                                 t[6:9], 0)
     for dtype in ("float16", "bfloat16"):
         out, w = fit_reconstruct_cholesky(cfg.replace(tmp_data_dtype=dtype),
                                           t[0:3], t[3:6], t[6:9], 0)

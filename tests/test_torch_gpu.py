@@ -687,3 +687,194 @@ def test_paths_meet_the_oracle_on_card(cuda, path):
     assert parity.flagship_faults(
         [parity.compare(p, o) for p, o in zip(port, oracle)],
         [parity.compare(p, o) for p, o in zip(port, bf16)]) == []
+
+
+#: bases of 4, 7, 10 (first order) and 16 columns for kernels B and C;
+#: the 16-column one adds three cross terms registered for the test
+CROSS = {"gpu_test_position_xy": lambda n, p: p[0] * p[1],
+         "gpu_test_position_yz": lambda n, p: p[1] * p[2],
+         "gpu_test_normal_xz": lambda n, p: n[0] * n[2]}
+BASES = {
+    "4-columns": dict(features_not_scaled=("const",), features_scaled=()),
+    "7-columns": dict(features_not_scaled=("const", "normal_x", "normal_y",
+                                           "normal_z"), features_scaled=()),
+    "first_order": dict(features_scaled=(
+        "world_position_x", "world_position_y", "world_position_z")),
+    "16-columns": dict(features_scaled=(
+        "world_position_x", "world_position_y", "world_position_z",
+        "world_position_x2", "world_position_y2", "world_position_z2",
+        *CROSS)),
+}
+
+
+@pytest.fixture
+def cross_features():
+    from bmfr_tpu_torch import features
+
+    for name, fn in CROSS.items():
+        features.register_feature(name, fn)
+    yield
+    for name in CROSS:
+        features.FEATURE_REGISTRY.pop(name, None)
+
+
+def stored_lstsq(cfg, planes, frame):
+    """The f64 least-squares weights of the rescaled, rounded, noised
+    system the fitters solve from ``planes`` at ``frame``."""
+    from bmfr_tpu_torch.ops.blockify import build_feature_blocks
+    from bmfr_tpu_torch.rng import feature_noise
+
+    F = cfg.feature_count
+    tmp = build_feature_blocks(cfg, *planes, frame)
+    data, _ = fitter.scale_blocks(cfg, tmp.float())
+    data = fitter.storage_roundtrip(cfg, data)
+    noise = feature_noise(frame, F, cfg.block_pixels, cfg.buffer_count,
+                          cfg.noise_amount, data.device)
+    A = (data[:, :F] + noise[None]).transpose(1, 2).double()
+    b = data[:, F:].transpose(1, 2).double()
+    return torch.linalg.lstsq(A, b).solution
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("basis", list(BASES))
+@pytest.mark.parametrize("kernel", ["B", "C"])
+def test_basis_kernels_match_plain(cuda, monkeypatch, cross_features, kernel,
+                                   basis, dtype):
+    """Kernels B and C on bases other than the default one (the basis
+    front: the registry's planes staged through the mirrored, jittered
+    addressing), at 120x200 (W not a multiple of 32), against their plain
+    versions: the reconstruction to 5e-3 (B on f16/bf16 tmp held to the
+    exact answer as test_fit_kernel_reduced_precision_matches_plain holds
+    it), C's blocks entry: mins/maxs to 1e-6, weights to 2e-3 on f32
+    tmp and no less exact than the plain version's on f16/bf16."""
+    H, W, frame = 120, 200, 5
+    cfg = scene_cfg(H, W).replace(tmp_data_dtype=dtype, **BASES[basis])
+    inputs, _, _ = scene(H, W, cuda, frames=1)
+    planes = (inputs.normals[0], inputs.positions[0], inputs.noisy[0])
+    if kernel == "B":
+        fit, plain = (fit_reconstruct_cholesky,
+                      fit_reconstruct_cholesky_reference)
+    else:
+        cfg = cfg.replace(solver="householder")
+        fit, plain = (fitter_direct.fit_reconstruct_direct,
+                      fitter_direct.fit_reconstruct_direct_reference)
+    n0 = fit.launches
+    got, w = fit(cfg, *planes, frame)
+    assert fit.launches == n0 + 1
+    assert w.shape == (cfg.n_blocks, cfg.feature_count, 3)
+    want, w_ref = plain(cfg, *planes, frame)
+    torch.cuda.synchronize()
+    assert torch.equal((w == 0).all(dim=(1, 2)), (w_ref == 0).all(dim=(1, 2)))
+    if kernel == "B" and dtype != "float32":
+        gram = fitter.gram
+        monkeypatch.setattr(fitter, "gram",
+                            lambda data, F: gram(data.double(), F).float())
+        exact, _ = plain(cfg, *planes, frame)
+        off = ((got - exact).abs() > 5e-3 + 5e-3 * exact.abs()).float()
+        assert float(off.mean()) <= 1e-3, float(off.mean())
+        got, want, exact = (x.cpu().numpy() for x in (got, want, exact))
+        # both capped at the f32 rounding of values near 1 (140 dB): two
+        # answers there are equally exact
+        assert (min(psnr(got, exact), 140.0)
+                >= min(psnr(want, exact), 140.0) - 3.0)
+        return
+    torch.testing.assert_close(got, want, rtol=5e-3, atol=5e-3)
+    if kernel == "C":
+        w, mm = fitter_direct.fit_blocks_direct(cfg, *planes, frame)
+        w_ref, mm_ref = fitter_direct.fit_blocks_direct_reference(
+            cfg, *planes, frame)
+        torch.cuda.synchronize()
+        assert mm.shape == (cfg.n_blocks, cfg.features_scaled_count, 2)
+        torch.testing.assert_close(mm, mm_ref, rtol=1e-6, atol=1e-6)
+        if dtype == "float32":
+            torch.testing.assert_close(w, w_ref, rtol=2e-3, atol=2e-3)
+            return
+        # reduced precision: single weights of ill-conditioned blocks move
+        # with the summation order alone, so the kernel's are held to be
+        # no less exact than the plain version's (3 dB) against the f64
+        # least-squares weights of the same stored system
+        exact = stored_lstsq(cfg, planes, frame)
+        d_got = float((w.double() - exact).norm() / exact.norm())
+        d_ref = float((w_ref.double() - exact).norm() / exact.norm())
+        assert d_got <= 2 ** 0.5 * d_ref, (d_got, d_ref)
+
+
+@pytest.mark.parametrize("places", [1, 2])
+@pytest.mark.parametrize("path", ["default", "flagship"])
+def test_scenes_on_card_equal_per_scene(cuda, path, places):
+    """Four scenes through the scene-parallel entry, on one place of the
+    card or two (the card named twice: two threads, two compiled steps),
+    equal their per-scene denoise_sequence bit for bit; each replay of a
+    card's graph counts every scene's launches."""
+    H, W, T, S = 48, 160, 4, 4
+    cfg = path_cfg(path, H, W)
+    frames = [scene(H, W, cuda, frames=T)]
+    sc = synthetic_sequence(width=W, height=H, frames=T, seed=3,
+                            scene="corridor")
+    frames.append((bt.frame_inputs_from_numpy(
+        sc["normals"], sc["positions"], sc["noisy"], sc["albedo"], cuda),
+        torch.from_numpy(sc["camera_matrices"]).to(cuda),
+        torch.from_numpy(sc["pixel_offsets"]).to(cuda)))
+    r = np.random.default_rng(7)
+    inputs = bt.FrameInputs(*(torch.stack(
+        [frames[0][0][k], frames[1][0][k],
+         torch.from_numpy(r.random((T, 3, H, W), np.float32)).to(cuda),
+         frames[0][0][k].flip(-1).contiguous()]) for k in range(4)))
+    cams = torch.stack([frames[0][1], frames[1][1], frames[0][1],
+                        frames[1][1]])
+    offs = torch.stack([frames[0][2]] * 2 + [frames[1][2]] * 2)
+    want = torch.stack([bt.denoise_sequence(
+        cfg, bt.FrameInputs(*(x[s] for x in inputs)), cams[s], offs[s])
+        for s in range(S)])
+    counter = (fit_blocks_pallas if path == "default"
+               else fit_reconstruct_cholesky)
+    counter.launches = 0
+    got = bt.denoise_scenes_sharded(cfg, bt.make_scene_mesh([cuda] * places),
+                                    inputs, cams, offs)
+    assert counter.launches == S * T
+    assert got.device == want.device
+    assert torch.equal(got, want)
+
+
+def test_interleaved_scenes_on_card_keep_their_own_carry(cuda):
+    """Two scenes of one card stepped in one graph, then again in the other
+    order through the same runner: each equals its own denoise_sequence,
+    so no carry serves two scenes."""
+    H, W, T = 64, 96, 5
+    cfg = scene_cfg(H, W)
+    a, b = scene(H, W, cuda, frames=T), scene(W, H, cuda, frames=T)
+    b = (bt.FrameInputs(*(x.transpose(-1, -2).contiguous() for x in b[0])),
+         b[1], b[2])
+    inputs = bt.FrameInputs(*(torch.stack([x, y]) for x, y in
+                              zip(a[0], b[0])))
+    cams, offs = torch.stack([a[1], b[1]]), torch.stack([a[2], b[2]])
+    want = torch.stack([bt.denoise_sequence(
+        cfg, bt.FrameInputs(*(x[s] for x in inputs)), cams[s], offs[s])
+        for s in range(2)])
+    assert not torch.equal(want[0], want[1])
+    run = bt.denoise_scenes_jit(cfg, bt.make_scene_mesh([cuda]))
+    assert torch.equal(run(inputs, cams, offs), want)
+    swap = [1, 0]
+    assert torch.equal(run(bt.FrameInputs(*(x[swap] for x in inputs)),
+                           cams[swap], offs[swap]), want[swap])
+
+
+def test_dryrun_multichip_on_card(cuda):
+    from bmfr_tpu_torch import graft_entry
+
+    assert graft_entry.dryrun_multichip(1) == [0.0, 0.0, 0.0]
+    assert graft_entry.dryrun_multichip(4, devices=[cuda] * 4) == [0.0] * 3
+
+
+def test_entry_runs_captured_on_card(cuda):
+    """graft_entry.entry()'s step: its capture and a replay both equal the
+    eager denoise_frame bit for bit."""
+    from bmfr_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    eager = bt.denoise_frame(graft_entry.entry_config(), *args,
+                             history="always")[1]["result"]
+    for _ in range(2):
+        state, result = fn(*args)
+        assert torch.equal(result, eager)
+    assert isinstance(state, bt.TemporalState)

@@ -139,16 +139,16 @@ def test_state_pack_matches_jax_carry(jax_flagship, tiny_scene):
 
 
 def test_port_rejects_other_configs():
-    """The two configurations the port still rejects raise
-    NotImplementedError naming their ROADMAP item; the ones it rejected
-    before run."""
+    """The one configuration the port still rejects, the TPU-only
+    ``steady_only`` knob, raises NotImplementedError naming its ROADMAP
+    item; the ones it rejected before (a custom basis on the direct
+    fitters among them) run."""
     cfg = bt.BMFRConfig(image_width=64, image_height=48, **bt.FLAGSHIP)
-    for kw in (dict(warp_tier_impl="steady_only"),
-               dict(features_scaled=("world_position_x",))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            bt.make_denoise_frame(cfg.replace(**kw))
+    with pytest.raises(NotImplementedError, match="TPU-only.*ROADMAP"):
+        bt.make_denoise_frame(cfg.replace(warp_tier_impl="steady_only"))
     # formerly rejected, and the tolerated variants
-    for kw in (dict(solver="householder"), dict(warp_mode="packed_x_bf16"),
+    for kw in (dict(features_scaled=("world_position_x",)),
+               dict(solver="householder"), dict(warp_mode="packed_x_bf16"),
                dict(fitter_impl="xla"), dict(tmp_data_dtype="float16"),
                dict(fitter_impl="auto", block_edge=16),
                dict(fitter_impl="xla", features_scaled=("world_position_x",)),
