@@ -7,70 +7,83 @@
 // (fitter_direct.py:180-181). The default basis keeps its own front and
 // sums in registers (fitter_chol.cu).
 //
-// The wrapper (ops/fitter_direct.py) evaluates the basis with the feature
-// registry into F f32 planes [F, H, W]; the kernel stages them with the
-// accumulated colour through the same mirrored, jittered addressing as
-// the raw planes (a feature is a per-pixel function, so evaluating before
-// the mirror equals evaluating after it). NB = F + 3 columns, 4 .. 16, a
-// template parameter. One CTA of 128 threads per 32x32 block of the
-// jittered margins grid; thread t owns view cells t + 128 k (k < 8). Per
-// block:
-//   1. stage the NB planes in shared memory (rows of BP + 1 floats, so
-//      the Gram loads below hit distinct banks), and take the block
-//      min/max of every stored feature (a transpose reduction of 2 F
-//      maxima per warp, every warp its own copy of the scale);
-//   2. each view cell's row of the fit, in place: the K1 store contract
-//      (NaN -> 0, f16 clamp, storage rounding), the rescale with its
-//      storage rounding of the features from lo on, the hash noise on
-//      features 1..;
-//   3. the F (F + 1) / 2 Gram + 3 F rhs sums in plain f32 (no TF32, no
-//      tensor cores: the normal equations cancel catastrophically under
-//      rounded operands): warp w sums its quarter of the block, lane l
-//      the sums l, l + 32, .., each as 8 chunk sums added as a tree; the
-//      quarters are added in warp order in the solve. The row registers
-//      of the default kernel's sums (96 a thread) would not fit 130 sums;
+// The kernel reads the raw normals, positions and accumulated colour and
+// computes each feature from its plane (basis_front.cuh: the built-in ones
+// from the raw planes, any other from the extra planes the wrapper
+// evaluates), through the mirrored, jittered addressing of the default
+// front. NB = F + 3 columns, 4 .. 16, a template parameter; the basis
+// (each feature's plane and op) is a launch argument. One CTA of 256
+// threads per 32x32 block of the jittered margins grid; thread t owns view
+// cells t + 256 k (k < 4). Per block:
+//   1. each view cell's features and colours through the K1 store
+//      contract (NaN -> 0, f16 clamp, storage rounding) into shared memory
+//      (NB rows of 1024 floats), and the block min/max of every stored
+//      feature (a transpose reduction of 2 F maxima per warp, every warp
+//      its own copy of the scale);
+//   2. in place, the rescale with its storage rounding of the features
+//      from lo on, and the hash noise on features 1..;
+//   3. the Gram + rhs sums of rows < F in plain f32 (no TF32, no tensor
+//      cores: the normal equations cancel catastrophically under rounded
+//      operands), register-tiled: the sums fall into 4x4 tiles (rows 4i..,
+//      columns 4j.., j >= i; indices past the last row or column are
+//      clamped and their sums dropped), and warp w sums every tile over
+//      its eighth of the block, lane l over pixels 2l, 2l + 1 of each run
+//      of 64 (4 pixels, float2 loads: 8 shared loads feed 32 FMAs), then
+//      one transpose reduction over the warp; the eighths are added in
+//      warp order in the solve;
 //   4. on warp 0 the factorization of [G; b^T] and the solves, in
 //      _chol_kernel's order, as fitter_chol.cu (lane r holds row r, NB <=
 //      16 lanes); the back solve takes one lane per (colour, row), as many
 //      colours at a time as 32 lanes hold (3 up to F = 10, then 2);
 //      NaN -> 0;
 //   5. the reconstruction straight into the image: each in-image pixel's
-//      F planes read again (from L2), the pre-rounding values rescaled
-//      from lo on, as fitter_direct.py:199-209 builds the basis.
+//      features computed again from their planes (from L2), the
+//      pre-rounding values rescaled from lo on, as fitter_direct.py:199-209
+//      builds the basis.
 //
-// What bounds it on this card: the shared-memory loads of phase 3, two a
-// sum and pixel (130 sums x 1024 pixels a block at F = 13), and the
-// dynamic shared memory (NB (BP + 1) floats, 66 KB at 16 columns), which
-// holds 3 CTAs on an SM; the bytes are (F + 6) * 3.7 MB per 1280x720
-// frame.
+// What bounds it on this card: the bytes are the accumulated colour, the
+// raw planes the features read (all six from first order on) and the K
+// extra planes in (none on a basis of built-in features), the image out;
+// the instructions per view cell are the noise hashes (F - 1 of them), the
+// features and their store, and the Gram sums (16 FMAs per tile and pixel,
+// 4 shared-memory bytes per FMA). The staging, the rescale and the
+// reconstruction wait on loads and divisions: 256 threads a CTA, at most
+// 85 registers so that 3 CTAs (24 warps) share an SM at 16 columns (the
+// staged rows, NB x 4 KB, allow 3), took 0.71x the time of 128 threads at
+// 3 CTAs (PERF.md, Findings).
 
-#include "householder.cuh"
+#include "basis_front.cuh"
 
 namespace {
 
 using namespace bmfr;
 
-constexpr int T = 128, NW = T / 32, PP = BP / T;
-constexpr int BPS = BP + 1;  // a staged plane's row in shared memory
-constexpr int QP = BP / NW;  // pixels a warp sums in phase 3
-
-// index of Gram/rhs entry (f1 <= f2, f1 < F) of NB columns
-__host__ __device__ constexpr int gram_index(int NB, int f1, int f2) {
-  return f1 * NB - f1 * (f1 - 1) / 2 + (f2 - f1);
-}
+constexpr int T = 256, NW = T / 32, PP = BP / T;
+constexpr int TE = 4;         // a Gram tile's edge
+constexpr int QP = BP / NW;   // pixels a warp sums in phase 3
+constexpr int RUN = 64;       // pixels a warp takes per step (2 a lane)
 
 template <int NB>
 struct Layout {
   static constexpr int F = NB - 3;
-  static constexpr int NG = gram_index(NB, F, F);  // the sums of rows < F
-  static constexpr int GJ = (NG + 31) / 32;        // sums a lane takes
-  static constexpr int NGW = GJ * 32;
-  // dynamic shared memory, in floats: staged planes, the warps' maxima,
-  // each warp's scale, the warps' partial sums, L and y, the weights
-  static constexpr int RAW = 0, MMW = NB * BPS, SCALE = MMW + NW * 32,
-                       RED = SCALE + NW * 2 * F, SL = RED + NW * NGW,
-                       SW = SL + NB * F, TOTAL = SW + 3 * F;
+  static constexpr int RT = (F + TE - 1) / TE;   // row tiles: rows < F
+  static constexpr int CT = (NB + TE - 1) / TE;  // column tiles
+  static constexpr int NT = RT * CT - RT * (RT - 1) / 2;  // tiles, j >= i
+  // dynamic shared memory, in floats: the staged rows; the warps' maxima
+  // (phase 1), which the warps' tile sums reuse (phases 3-4); each warp's
+  // scale; L and y; the weights
+  static constexpr int RED_N = NW * NT * TE * TE;
+  static constexpr int VAL = 0, RED = NB * BP,
+                       SCALE = RED + (RED_N > NW * 32 ? RED_N : NW * 32),
+                       SL = SCALE + NW * 2 * F, SW = SL + NB * F,
+                       TOTAL = SW + 3 * F;
 };
+
+// the tile of rows 4i.., columns 4j.. (j >= i) in the tiles' order
+template <int NB>
+__host__ __device__ constexpr int tile_index(int i, int j) {
+  return i * Layout<NB>::CT - i * (i - 1) / 2 + (j - i);
+}
 
 // mirror() with the in-range case first (a row of view cells is uniform
 // over a warp, so the branch does not diverge)
@@ -80,16 +93,15 @@ __device__ __forceinline__ int mirror_row(int i, int size) {
 
 template <int M, int NB>
 __global__ void __launch_bounds__(T, 3)
-fit_chol_basis_kernel(const float* __restrict__ feats,  // [F, H, W]
-                      const float* __restrict__ accum,  // [3, H, W]
+fit_chol_basis_kernel(const float* __restrict__ accum,  // [3, H, W]
+                      const Basis basis,  // each feature's plane and op
                       float* __restrict__ out, float* __restrict__ weights,
                       int H, int W, int lo, const int* __restrict__ frame_ptr,
                       float amp) {
   using L = Layout<NB>;
   constexpr int F = L::F;
-  extern __shared__ float smem[];
-  float* raw = smem + L::RAW;
-  float* mmw = smem + L::MMW;
+  extern __shared__ __align__(16) float smem[];  // float2 loads in phase 3
+  float* val = smem + L::VAL;
   float* red = smem + L::RED;
   float* sL = smem + L::SL;
   float* sw = smem + L::SW;
@@ -104,7 +116,7 @@ fit_chol_basis_kernel(const float* __restrict__ feats,  // [F, H, W]
   const int ix = (int)blockIdx.x * BE - BE / 2 + jit.x + lane;
   const int sx = mirror(ix, W);
 
-  // ---- 1. stage the planes and the block min/max ----
+  // ---- 1. stage the stored values and the block min/max ----
   float mm[32];  // mm[c] = max(-v) = -min, mm[F + c] = max of feature c
 #pragma unroll
   for (int j = 0; j < 32; ++j) mm[j] = -INFINITY;
@@ -114,25 +126,25 @@ fit_chol_basis_kernel(const float* __restrict__ feats,  // [F, H, W]
     const int64_t off = (int64_t)mirror_row(iy0 + NW * k, H) * W + sx;
 #pragma unroll
     for (int c = 0; c < F; ++c) {
-      const float v = feats[c * n + off];
-      raw[c * BPS + e] = v;
-      const float s = store<M>(v);
+      const float s = store<M>(feature_value(basis, c, off));
+      val[c * BP + e] = s;
       mm[c] = fmaxf(mm[c], -s);
       mm[F + c] = fmaxf(mm[F + c], s);
     }
 #pragma unroll
-    for (int c = 0; c < 3; ++c) raw[(F + c) * BPS + e] = accum[c * n + off];
+    for (int c = 0; c < 3; ++c)
+      val[(F + c) * BP + e] = store<M>(accum[c * n + off]);
   }
   // lane l ends with the warp's maximum of value l
   transpose_halves<MaxOp, 32, 5>(mm, lane);
-  mmw[warp * 32 + lane] = mm[0];
+  red[warp * 32 + lane] = mm[0];
   __syncthreads();
   // every warp combines the warps' maxima into its own copy of the
   // block's scale: smin, then sden
   float* scale = smem + L::SCALE + warp * 2 * F;
   {
-    float t = mmw[lane];
-    for (int w = 1; w < NW; ++w) t = fmaxf(t, mmw[w * 32 + lane]);
+    float t = red[lane];
+    for (int w = 1; w < NW; ++w) t = fmaxf(t, red[w * 32 + lane]);
     const float hi = __shfl_down_sync(FULL, t, F);
     if (lane < F) {
       scale[lane] = -t;
@@ -147,56 +159,56 @@ fit_chol_basis_kernel(const float* __restrict__ feats,  // [F, H, W]
 #pragma unroll 1
   for (int k = 0; k < PP; ++k) {
     const int e = tid + T * k;
-    float v[NB];
-#pragma unroll
-    for (int c = 0; c < NB; ++c) v[c] = store<M>(raw[c * BPS + e]);
 #pragma unroll
     for (int c = 1; c < F; ++c) {
-      if (c >= lo) v[c] = quantize<M>((v[c] - smin[c]) / sden[c]);
-      v[c] = v[c] + noise_at(nz, c, e);
+      float v = val[c * BP + e];
+      if (c >= lo) v = quantize<M>((v - smin[c]) / sden[c]);
+      val[c * BP + e] = v + noise_at(nz, c, e);
     }
-#pragma unroll
-    for (int c = 0; c < NB; ++c) raw[c * BPS + e] = v[c];
   }
   __syncthreads();
 
-  // ---- 3. the Gram + rhs sums: warp w over pixels [w QP, (w + 1) QP),
-  // lane l the sums l + 32 j, each as NCH partial sums over the chunks of
-  // 32 pixels added as a tree (one running sum over 256 pixels rounded
-  // the f16 fits to 7 dB less exact than the plain version's) ----
-  {
-    constexpr int NCH = QP / 32;
-    static_assert(NCH == 8, "the tree below adds 8 chunks");
-    const float* p1[L::GJ];
-    const float* p2[L::GJ];
-    float acc[L::GJ][NCH];
+  // ---- 3. the Gram + rhs sums, tile by tile over the warp's eighth ----
+#pragma unroll 1
+  for (int t = 0; t < L::NT; ++t) {
+    int i = 0, r = t;
+    while (r >= L::CT - i) {
+      r -= L::CT - i;
+      ++i;
+    }
+    const float* rows[TE];
+    const float* cols[TE];
 #pragma unroll
-    for (int j = 0; j < L::GJ; ++j) {
-      int g = min(lane + 32 * j, L::NG - 1), f1 = 0;
-      while (g >= NB - f1) {
-        g -= NB - f1;
-        ++f1;
+    for (int a = 0; a < TE; ++a) {
+      const int base = warp * QP + 2 * lane;
+      rows[a] = val + min(TE * i + a, NB - 1) * BP + base;
+      cols[a] = val + min(TE * (i + r) + a, NB - 1) * BP + base;
+    }
+    float acc[TE * TE];
+#pragma unroll
+    for (int q = 0; q < TE * TE; ++q) acc[q] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < QP; s += RUN) {
+      float2 x[TE], y[TE];
+#pragma unroll
+      for (int a = 0; a < TE; ++a) {
+        x[a] = *reinterpret_cast<const float2*>(rows[a] + s);
+        y[a] = *reinterpret_cast<const float2*>(cols[a] + s);
       }
-      p1[j] = raw + f1 * BPS + warp * QP;
-      p2[j] = raw + (f1 + g) * BPS + warp * QP;
 #pragma unroll
-      for (int c = 0; c < NCH; ++c) acc[j][c] = 0.0f;
-    }
-#pragma unroll 2
-    for (int e = 0; e < 32; ++e) {
+      for (int a = 0; a < TE; ++a) {
 #pragma unroll
-      for (int c = 0; c < NCH; ++c) {
-#pragma unroll
-        for (int j = 0; j < L::GJ; ++j)
-          acc[j][c] += p1[j][c * 32 + e] * p2[j][c * 32 + e];
+        for (int b = 0; b < TE; ++b) {
+          acc[a * TE + b] += x[a].x * y[b].x;
+          acc[a * TE + b] += x[a].y * y[b].y;
+        }
       }
     }
-#pragma unroll
-    for (int j = 0; j < L::GJ; ++j) {
-      const float(&a)[NCH] = acc[j];
-      red[warp * L::NGW + lane + 32 * j] =
-          ((a[0] + a[1]) + (a[2] + a[3])) + ((a[4] + a[5]) + (a[6] + a[7]));
-    }
+    // lanes 2q and 2q + 1 end with the warp's total of sum q
+    transpose_halves<SumOp, TE * TE, 4>(acc, lane);
+    acc[0] += __shfl_xor_sync(FULL, acc[0], 1);
+    if ((lane & 1) == 0)
+      red[(warp * L::NT + t) * TE * TE + (lane >> 1)] = acc[0];
   }
   __syncthreads();
 
@@ -208,9 +220,11 @@ fit_chol_basis_kernel(const float* __restrict__ feats,  // [F, H, W]
     float a[F];
 #pragma unroll
     for (int c = 0; c < F; ++c) {
-      const int idx = gram_index(NB, min(r, c), max(r, c));
+      const int f1 = min(r, c), f2 = max(r, c);
+      const int idx = tile_index<NB>(f1 / TE, f2 / TE) * TE * TE +
+                      (f1 % TE) * TE + f2 % TE;
       float s = red[idx];
-      for (int w = 1; w < NW; ++w) s += red[w * L::NGW + idx];
+      for (int w = 1; w < NW; ++w) s += red[w * L::NT * TE * TE + idx];
       a[c] = s;
     }
     // right-looking, each entry's subtractions in the order k = 0, 1, ..
@@ -263,7 +277,7 @@ fit_chol_basis_kernel(const float* __restrict__ feats,  // [F, H, W]
 
   // ---- 5. reconstruction straight into the image ----
   const bool col_in = ix >= 0 && ix < W;
-#pragma unroll 1
+#pragma unroll 2
   for (int k = 0; k < PP; ++k) {
     const int iy = iy0 + NW * k;
     if (!col_in || iy < 0 || iy >= H) continue;
@@ -271,7 +285,7 @@ fit_chol_basis_kernel(const float* __restrict__ feats,  // [F, H, W]
     float acc[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
     for (int f = 0; f < F; ++f) {
-      float v = feats[f * n + off];
+      float v = feature_value(basis, f, off);
       if (f >= lo) v = (v - smin[f]) / sden[f];
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch) acc[ch] = acc[ch] + v * sw[ch * F + f];
@@ -283,38 +297,43 @@ fit_chol_basis_kernel(const float* __restrict__ feats,  // [F, H, W]
 }
 
 template <int M, int NB>
-int launch(const float* feats, const float* accum, float* out, float* weights,
-           int H, int W, int blocks_x, int blocks_y, int lo, const int* frame,
-           float amp, cudaStream_t stream) {
+int launch(const float* accum, const Basis& basis, float* out,
+           float* weights, int H, int W, int blocks_x, int blocks_y, int lo,
+           const int* frame, float amp, cudaStream_t stream) {
   auto kernel = fit_chol_basis_kernel<M, NB>;
   const int bytes = Layout<NB>::TOTAL * (int)sizeof(float);
   static int granted = 48 * 1024;
   const int err = allow_smem(kernel, bytes, &granted);
   if (err != 0) return err;
   const dim3 grid((unsigned)blocks_x, (unsigned)blocks_y);
-  kernel<<<grid, T, bytes, stream>>>(feats, accum, out, weights, H, W, lo,
+  kernel<<<grid, T, bytes, stream>>>(accum, basis, out, weights, H, W, lo,
                                      frame, amp);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// feats: the F feature planes [F, H, W]; accum: [3, H, W]; out: [3, H,
-// W]; weights: [n_blocks, F, 3]; F: features (4 <= F + 3 <= 16); lo:
-// features not scaled (>= 1); frame: the frame number, an int on the
-// device (fitter_front.cuh); mode: the tmp dtype, 0 f32, 1 f16, 2 bf16;
-// noise_amp: the hash noise's amplitude
+// accum: [3, H, W]; planes: a host array of F device addresses, feature
+// i's plane ([H, W] f32: a raw normal or position plane, the colour plane
+// for the constant, or an extra plane the wrapper evaluated); ops_lo,
+// ops_hi: feature i's op (basis_front.cuh) in byte i % 8 of word i / 8;
+// out: [3, H, W]; weights: [n_blocks, F, 3]; F: features (4 <= F + 3 <=
+// 16); lo: features not scaled (>= 1); frame: the frame number, an int on
+// the device (fitter_front.cuh); mode: the tmp dtype, 0 f32, 1 f16, 2
+// bf16; noise_amp: the hash noise's amplitude
 extern "C" int bmfr_fit_reconstruct_cholesky_basis(
-    const float* feats, const float* accum, float* out, float* weights, int H,
-    int W, int blocks_x, int blocks_y, int F, int lo, const int* frame,
-    int mode, float noise_amp, cudaStream_t stream) {
+    const float* accum, const unsigned long long* planes,
+    unsigned long long ops_lo, unsigned long long ops_hi, float* out,
+    float* weights, int H, int W, int blocks_x, int blocks_y, int F, int lo,
+    const int* frame, int mode, float noise_amp, cudaStream_t stream) {
   if (lo < 1 || lo > F) return (int)cudaErrorInvalidValue;
+  const Basis basis = make_basis(planes, F, ops_lo, ops_hi);
   return with_storage(mode, [&](auto, auto m) {
     constexpr int Mv = decltype(m)::value;
     return with_columns(F + 3, [&](auto nb) {
-      return launch<Mv, decltype(nb)::value>(
-          feats, accum, out, weights, H, W, blocks_x, blocks_y, lo, frame,
-          noise_amp, stream);
+      return launch<Mv, decltype(nb)::value>(accum, basis, out, weights, H,
+                                             W, blocks_x, blocks_y, lo, frame,
+                                             noise_amp, stream);
     });
   });
 }

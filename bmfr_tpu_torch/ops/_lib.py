@@ -28,11 +28,12 @@ SOURCES = ("warp_blend.cu", "fitter_chol.cu", "fitter_chol_basis.cu",
            "householder_blocks.cu", "householder_blocks_smem.cu",
            "householder_direct.cu", "householder_direct_basis.cu",
            "warp_rows.cu")
-HEADERS = ("fitter_front.cuh", "householder.cuh")
+HEADERS = ("fitter_front.cuh", "householder.cuh", "basis_front.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U64 = ctypes.c_ulonglong
 #: C entry points and their argument types (pointers and the stream as
 #: c_void_p, so ctypes never cuts them to 32 bits)
 _SIGNATURES = {
@@ -46,14 +47,15 @@ _SIGNATURES = {
     # blocks_y, frame, mode, noise_amp, stream
     "bmfr_fit_direct_householder": (_P,) * 6 + (_I,) * 4 + (_P, _I, _F,
                                                             _P),
-    # feats, accum, out, weights, H, W, blocks_x, blocks_y, F, lo, frame,
-    # mode, noise_amp, stream (any basis: the planes of its F features)
-    "bmfr_fit_reconstruct_cholesky_basis": (_P,) * 4 + (_I,) * 6 + (
-        _P, _I, _F, _P),
-    # feats, accum, out, weights, mins_maxs, H, W, blocks_x, blocks_y, F,
-    # lo, frame, mode, noise_amp, stream
-    "bmfr_fit_direct_householder_basis": (_P,) * 5 + (_I,) * 6 + (
-        _P, _I, _F, _P),
+    # accum, planes (a host array of F plane addresses), ops_lo, ops_hi,
+    # out, weights, H, W, blocks_x, blocks_y, F, lo, frame, mode,
+    # noise_amp, stream (any basis: fitter_direct.plane_table)
+    "bmfr_fit_reconstruct_cholesky_basis": (_P, _P, _U64, _U64, _P, _P) + (
+        _I,) * 6 + (_P, _I, _F, _P),
+    # accum, planes, ops_lo, ops_hi, out, weights, mins_maxs, H, W,
+    # blocks_x, blocks_y, F, lo, frame, mode, noise_amp, stream
+    "bmfr_fit_direct_householder_basis": (_P, _P, _U64, _U64, _P, _P, _P) + (
+        _I,) * 6 + (_P, _I, _F, _P),
     # tmp, weights, mins_maxs, nb, B, lo, bp, mode, group, blocks_per_cta,
     # smem, frame, noise_amp, stream
     "bmfr_fit_blocks_registers": (_P,) * 3 + (_I,) * 8 + (_P, _F, _P),

@@ -28,18 +28,21 @@ unsanitized, noise-free f32 features and writes the image directly,
 which replaces the JAX pipeline's inverse-jitter slice
 (``pipeline/denoise.py:218-225``).
 
-Any other feature basis (``cfg.all_features`` not the default, 4..16
-columns, features + colours) takes the basis front of the same kernels
-(``csrc/fitter_chol_basis.cu``, ``csrc/householder_direct_basis.cu``):
-the wrapper evaluates the basis with the registry
-(:func:`~bmfr_tpu_torch.features.evaluate_features`) into f32 planes
-``[F, H, W]``, and the kernel stages those planes and the accumulated
-colour through the same mirrored, jittered addressing, in place of the
-raw planes (a feature is a per-pixel function, so evaluating before the
-mirror equals evaluating after it). The K1 store contract, the rescale
+Any other feature basis (4..16 columns, features + colours), and the
+default one once a user has registered one of its names anew, takes the
+basis front of the same kernels (``csrc/fitter_chol_basis.cu``,
+``csrc/householder_direct_basis.cu``, ``csrc/basis_front.cuh``), chosen by
+:func:`basis_plan` alone: the kernels read the raw planes and compute
+each feature whose name still holds its built-in function in their own
+code (a raw plane, its square or 1: :func:`plane_table`), as
+``_chol_kernel`` and ``_qr_kernel`` evaluate the registry inside the
+kernel; every other feature is a plane the wrapper evaluates with the
+registry (:func:`basis_planes`), addressed as the raw planes are (a
+feature is a per-pixel function, so evaluating before the mirror equals
+evaluating after it). The K1 store contract, the rescale
 of the scaled features (those from ``features_not_scaled_count`` on),
 the noise (none on feature 0) and the reconstruction from the
-pre-rounding planes are the default front's.
+pre-rounding features are the default front's.
 
 The plain versions are the block path the JAX tests hold the direct
 kernels to (``tests/test_fitter_direct.py``): ``build_feature_blocks``
@@ -49,10 +52,13 @@ kernels to (``tests/test_fitter_direct.py``): ``build_feature_blocks``
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 
 from ..config import DEFAULT_FEATURES
-from ..features import evaluate_features
+from ..features import _BUILTIN_FEATURES, FEATURE_REGISTRY, evaluate_features
 from ..rng import noise_amp
 from . import _lib
 from .blockify import build_feature_blocks
@@ -73,10 +79,90 @@ def _check_cfg(cfg):
                          f"{cfg.buffer_count}")
 
 
-def basis_planes(cfg, normals, positions):
-    """The planes the basis front stages: ``cfg``'s features evaluated
-    on the image, f32 ``[F, H, W]``, contiguous."""
-    return evaluate_features(cfg.all_features, normals,
+#: the plan's code of each built-in feature (:func:`plane_table` maps a
+#: code to the plane the basis kernels read and their op on it)
+BUILTIN_CODES = {name: code for code, name in enumerate(DEFAULT_FEATURES)}
+#: the code of extra plane k is PLANE_CODE + k
+PLANE_CODE = 16
+
+
+class BasisPlan(NamedTuple):
+    """How kernels B and C build ``cfg``'s basis (:func:`basis_plan`)."""
+
+    #: one code per feature of ``cfg.all_features``, in its order: a
+    #: built-in code, or PLANE_CODE + the index of its plane in ``planes``
+    codes: tuple
+    #: the features the wrapper evaluates into the extra planes
+    planes: tuple
+    #: the in-code default front serves the basis
+    default: bool
+
+    @property
+    def geometry(self):
+        """The raw planes the basis kernels read for these codes
+        (:func:`plane_table`): normals 0..2, positions 3..5."""
+        return tuple(sorted({c - 1 if c <= 6 else c - 4 for c in self.codes
+                             if 1 <= c < PLANE_CODE}))
+
+
+def basis_plan(cfg):
+    """The one place that chooses between the default front and the basis
+    front. A feature whose registry entry is its built-in function (by
+    identity) gets the built-in code; any other, a registered feature or
+    a default name registered anew, becomes a plane (one per name). The
+    default front serves only the ten default features in their order,
+    each still built in."""
+    codes, planes = [], []
+    for name in cfg.all_features:
+        if FEATURE_REGISTRY[name] is _BUILTIN_FEATURES.get(name):
+            codes.append(BUILTIN_CODES[name])
+            continue
+        if name not in planes:
+            planes.append(name)
+        codes.append(PLANE_CODE + planes.index(name))
+    return BasisPlan(tuple(codes), tuple(planes),
+                     cfg.all_features == DEFAULT_FEATURES and not planes)
+
+
+#: what the basis kernels do with a feature's plane (csrc/basis_front.cuh)
+VALUE, SQUARE, ONE = 0, 1, 2
+
+
+def plane_table(plan, normals, positions, accum, extra):
+    """The basis as the basis kernels take it: per feature of ``plan``
+    the device address of the plane it reads and its op. A normal or
+    position reads its raw plane, a squared position the position's plane
+    (squared in the kernel), the constant the first colour plane (which
+    the kernels read anyway; they take 1), any other feature its extra
+    plane. Returns (addresses, op of feature i in byte i % 8 of word
+    i // 8)."""
+    step = normals[0].numel() * normals.element_size()
+    addresses, words = [], [0, 0]
+    for i, code in enumerate(plan.codes):
+        if code >= PLANE_CODE:
+            plane, op = extra.data_ptr() + (code - PLANE_CODE) * step, VALUE
+        elif code >= 7:
+            plane, op = positions.data_ptr() + (code - 7) * step, SQUARE
+        elif code >= 4:
+            plane, op = positions.data_ptr() + (code - 4) * step, VALUE
+        elif code >= 1:
+            plane, op = normals.data_ptr() + (code - 1) * step, VALUE
+        else:
+            plane, op = accum.data_ptr(), ONE
+        addresses.append(plane)
+        words[i // 8] |= op << (8 * (i % 8))
+    return tuple(addresses), tuple(words)
+
+
+def basis_planes(cfg, normals, positions, plan=None):
+    """The extra planes the basis front stages: the features ``plan`` (by
+    default ``basis_plan(cfg)``) marks as planes, evaluated with the
+    registry on the image, f32 ``[K, H, W]``, contiguous; None when K =
+    0."""
+    plan = plan or basis_plan(cfg)
+    if not plan.planes:
+        return None
+    return evaluate_features(plan.planes, normals,
                              positions).to(torch.float32).contiguous()
 
 
@@ -108,17 +194,21 @@ def _launch_direct(name, cfg, normals, positions, accum, frame, *outs):
     ptr = [0 if t is None else t.data_ptr() for t in outs]
     tail = (ft.data_ptr(), MODE[cfg.tmp_data_dtype],
             noise_amp(cfg.noise_amount))
-    if cfg.all_features == DEFAULT_FEATURES:
+    plan = basis_plan(cfg)
+    if plan.default:
         _lib.launch(name, normals.data_ptr(), positions.data_ptr(),
                     accum.data_ptr(), *ptr, H, W, cfg.blocks_x,
                     cfg.blocks_y, *tail)
         return
-    # the basis front: the planes live until the kernel has read them
-    # (the caching allocator reuses them only in this stream's order)
-    feats = basis_planes(cfg, normals, positions)
-    _lib.launch(name + "_basis", feats.data_ptr(), accum.data_ptr(), *ptr,
-                H, W, cfg.blocks_x, cfg.blocks_y, cfg.feature_count,
-                cfg.features_not_scaled_count, *tail)
+    # the extra planes live until the kernel has read them (the caching
+    # allocator reuses them only in this stream's order); the kernel copies
+    # the addresses into its launch arguments before the call returns
+    extra = basis_planes(cfg, normals, positions, plan)
+    addresses, ops = plane_table(plan, normals, positions, accum, extra)
+    table = (ctypes.c_uint64 * len(addresses))(*addresses)
+    _lib.launch(name + "_basis", accum.data_ptr(), ctypes.addressof(table),
+                *ops, *ptr, H, W, cfg.blocks_x, cfg.blocks_y,
+                cfg.feature_count, cfg.features_not_scaled_count, *tail)
 
 
 def _device(fn_name, t):

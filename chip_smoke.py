@@ -57,11 +57,17 @@ port's copy of the NumPy oracle at 72x48x4 on orbit, corridor and swing
 
 The later slices' phases: ``[basis B]`` and ``[basis C]`` hold kernels B
 and C on feature bases of 4, 7, 10 (first order) and 16 columns (three
-cross terms registered with ``register_feature``) to their plain
-versions at 1280x720 on f32, f16 and bf16 tmp, each with its device ms,
-its bound over the (F + 3) planes and the default-basis kernel's ms in
-the same call; ``[path flagship first_order]`` drives the flagship on
-the first-order basis like the other paths; ``[scenes]`` renders three
+cross terms registered with ``register_feature``, which the kernels read
+as extra planes beside the ten built-in features they compute) to their
+plain versions at 1280x720 on f32, f16 and bf16 tmp, each with its
+device ms, its bound over the planes it reads, the
+default-basis kernel's ms in the same call and, for C,
+``torch.linalg.lstsq`` at each column count; ``[basis override]``
+registers ``normal_x`` anew and holds B and C on the card to their plain
+versions, which evaluate the registry; ``[path flagship first_order]``
+and ``[path householder flagship 16 columns]`` drive the flagship on the
+first-order basis (the basis B) and the householder flagship on the
+16-column basis (the basis C) like the other paths; ``[scenes]`` renders three
 more 1280x720x16 scenes (an orbit seed, corridor, swing) and runs the
 flagship and the default path through ``denoise_scenes_sharded`` over
 1, 2 and 4 scenes of the card and 4 on a mesh that names the card twice
@@ -101,9 +107,9 @@ from bmfr_tpu_torch.ops import _lib
 from bmfr_tpu_torch.ops.blockify import STORAGE_DTYPES, build_feature_blocks
 from bmfr_tpu_torch.ops.fitter import scale_blocks, storage_roundtrip
 from bmfr_tpu_torch.ops.fitter_direct import (
-    fit_blocks_direct, fit_blocks_direct_reference, fit_reconstruct_cholesky,
-    fit_reconstruct_cholesky_reference, fit_reconstruct_direct,
-    fit_reconstruct_direct_reference)
+    basis_plan, fit_blocks_direct, fit_blocks_direct_reference,
+    fit_reconstruct_cholesky, fit_reconstruct_cholesky_reference,
+    fit_reconstruct_direct, fit_reconstruct_direct_reference)
 from bmfr_tpu_torch.ops.fitter_pallas import (fit_blocks_pallas,
                                               fit_blocks_pallas_reference)
 from bmfr_tpu_torch.ops.gather import floor_int
@@ -925,16 +931,20 @@ SCENE_COUNTS = (1, 2, 4)
 DRYRUN_PLACES = 4
 
 
-def basis_bound(cfg, kernel):
-    """(ms, what bounds it) of a basis kernel: its F feature planes and 3
-    colour planes in, the image and the weights out; per view cell the
-    store, rescale and noise of each column (~10 operations) and B's Gram
-    sums (2 a sum) or C's reflections; per image pixel 6 F of the
-    reconstruction."""
+def basis_bound(cfg, kernel, in_planes=None):
+    """(ms, what bounds it) of a basis kernel: ``in_planes`` f32 planes in
+    (by default the accumulated colour, the raw planes its features read
+    and the extra planes of ``basis_plan``),
+    the image and the weights out; per view cell the store, rescale and
+    noise of each column (~10 operations) and B's Gram sums (2 a sum) or
+    C's reflections; per image pixel 6 F of the reconstruction."""
     F, NB = cfg.feature_count, cfg.buffer_count
     H, W = cfg.image_height, cfg.image_width
+    if in_planes is None:
+        plan = basis_plan(cfg)
+        in_planes = 3 + len(plan.geometry) + len(plan.planes)
     cells = cfg.n_blocks * cfg.block_pixels
-    moved = 4 * (NB * H * W + 3 * H * W + cfg.n_blocks * F * 3)
+    moved = 4 * (in_planes * H * W + 3 * H * W + cfg.n_blocks * F * 3)
     if kernel == "B":
         sums = F * NB - F * (F - 1) // 2
         ops = (10 * NB + 2 * sums) * cells
@@ -1034,11 +1044,15 @@ def check_basis_c(cfg, cur, accum, frame):
 def basis_phase(flagship, cur, frame):
     """``[basis B]`` and ``[basis C]``: kernels B and C on every basis of
     BASES and every tmp dtype against their plain versions at 1280x720,
-    with each kernel's device ms per call, its bound over the (F + 3)
-    planes and the default-basis kernel's device ms in the same call."""
+    with each kernel's device ms per call, its bound over the planes it
+    reads (beside it once, on f32, the bound over the F + 3 planes that
+    the earlier front read), the default-basis kernel's device ms in the
+    same call and, for C, ``torch.linalg.lstsq`` on the same stored system
+    at each column count; then ``[basis override]``."""
     for name, fn in CROSS_FEATURES.items():
         bt.register_feature(name, fn)
     accum = cur.noisy
+    planes = (cur.normals, cur.positions, accum)
     rec = {}
     for kernel, solver, kname, default_name in (
             ("B", "cholesky", "fit_chol_basis_kernel", "fit_chol_kernel"),
@@ -1046,37 +1060,109 @@ def basis_phase(flagship, cur, frame):
              "fit_direct_kernel")):
         fit = (fit_reconstruct_cholesky if kernel == "B"
                else fit_reconstruct_direct)
+        plain = (fit_reconstruct_cholesky_reference if kernel == "B"
+                 else fit_reconstruct_direct_reference)
         check = check_basis_b if kernel == "B" else check_basis_c
         for dtype in ("float32", "float16", "bfloat16"):
             base = flagship.replace(solver=solver, tmp_data_dtype=dtype)
             default_ms = kernel_device_ms(
-                lambda: fit(base, cur.normals, cur.positions, accum, frame),
-                default_name)
+                lambda: fit(base, *planes, frame), default_name)
             for bname, kw in BASES.items():
                 cfg = base.replace(**kw)
                 print(f"[basis {kernel}] {bname} ({cfg.feature_count} "
                       f"features, {cfg.buffer_count} columns), {dtype}:")
                 err, bad = check(cfg, cur, accum, frame)
-                dev_ms = kernel_device_ms(
-                    lambda: fit(cfg, cur.normals, cur.positions, accum,
-                                frame), kname)
-                call_ms = cuda_ms(lambda: fit(cfg, cur.normals,
-                                              cur.positions, accum, frame),
-                                  20)
+                dev_ms = kernel_device_ms(lambda: fit(cfg, *planes, frame),
+                                          kname)
+                call_ms = cuda_ms(lambda: fit(cfg, *planes, frame), 20)
                 b_ms, by = basis_bound(cfg, kernel)
                 print(f"[basis {kernel}] {gpu_line()}: {bname} {dtype}: "
                       "kernel device "
                       + ("not measured" if dev_ms is None else
                          f"{dev_ms:.4f} ms ({100 * b_ms / dev_ms:.1f}% of "
                          f"the bound {b_ms:.4f} ms, {by})")
-                      + f"; wrapper with the feature planes {call_ms:.4f} "
-                      f"ms; default-basis kernel in this call "
+                      + f"; wrapper {call_ms:.4f} ms; default-basis kernel "
+                      "in this call "
                       + ("not measured" if default_ms is None
                          else f"{default_ms:.4f} ms"))
-                rec[f"{kernel} {bname} {dtype}"] = dict(
-                    max_abs_err=err, off_tolerance=bad, device_ms=dev_ms,
-                    wrapper_ms=call_ms, bound_ms=b_ms, bound_by=by,
-                    default_basis_device_ms=default_ms)
+                r = dict(max_abs_err=err, off_tolerance=bad,
+                         device_ms=dev_ms, wrapper_ms=call_ms, bound_ms=b_ms,
+                         bound_by=by, default_basis_device_ms=default_ms)
+                if dtype == "float32":
+                    old_ms, old_by = basis_bound(cfg, kernel,
+                                                 cfg.buffer_count)
+                    plain_ms = cuda_ms(lambda: plain(cfg, *planes, frame), 3)
+                    print(f"[basis {kernel}] {bname}: the bound over F + 3 "
+                          f"planes (the earlier front's) {old_ms:.4f} ms "
+                          f"({old_by}); plain version {plain_ms:.4f} ms")
+                    r.update(bound_f3_ms=old_ms, plain_ms=plain_ms)
+                if kernel == "C" and dtype == "float32":
+                    tmp = build_feature_blocks(cfg, *planes, frame)
+                    w, _ = fit_blocks_direct(cfg, *planes, frame)
+                    lib_ms, lib_rel = lstsq_yardstick(cfg, tmp, w, frame)
+                    print(f"[basis C] {bname}: torch.linalg.lstsq on the "
+                          f"same stored system {lib_ms:.4f} ms per call, "
+                          f"weights' relative norm from the kernel's "
+                          f"{lib_rel:.3e}")
+                    r.update(library_ms=lib_ms, library_rel=lib_rel)
+                rec[f"{kernel} {bname} {dtype}"] = r
+    rec["override"] = override_phase(flagship, cur, frame)
+    return rec
+
+
+def override_phase(flagship, cur, frame):
+    """``[basis override]``: ``normal_x`` registered anew (as -n[0]) on the
+    default basis. Kernels B and C must take the basis front (the name no
+    longer holds its built-in function), equal their plain versions, which
+    evaluate the registry, and differ from the built-in basis's output.
+    The registry is restored after."""
+    from bmfr_tpu_torch import features
+
+    builtin = features.FEATURE_REGISTRY["normal_x"]
+    planes = (cur.normals, cur.positions, cur.noisy)
+    rec = {}
+    bt.register_feature("normal_x", lambda n, p: -n[0])
+    try:
+        for kernel, solver, fit, plain in (
+                ("B", "cholesky", fit_reconstruct_cholesky,
+                 fit_reconstruct_cholesky_reference),
+                ("C", "householder", fit_reconstruct_direct,
+                 fit_reconstruct_direct_reference)):
+            cfg = flagship.replace(solver=solver)
+            plan = basis_plan(cfg)
+            require(not plan.default and plan.planes == ("normal_x",),
+                    f"override {kernel}: plan {plan}")
+            n0 = fit.launches
+            got, w = fit(cfg, *planes, frame)
+            ref, wr = plain(cfg, *planes, frame)
+            torch.cuda.synchronize()
+            launched = fit.launches - n0
+            bad = off_tolerance(got, ref, FIT_TOL)
+            err = float((got - ref).abs().max())
+            features.FEATURE_REGISTRY["normal_x"] = builtin
+            try:
+                builtin_img, _ = fit(cfg, *planes, frame)
+            finally:
+                bt.register_feature("normal_x", lambda n, p: -n[0])
+            moved = float((builtin_img - ref).abs().max())
+            print(f"[basis override] {kernel}: normal_x registered as "
+                  f"-n[0]: kernel vs plain max |err| {err:.3e}, "
+                  f"off-tolerance values {bad} of {got.numel()}, launches "
+                  f"{launched}; the built-in basis's image differs from "
+                  f"plain's by {moved:.3e}")
+            require(bad == 0 and launched == 1,
+                    f"override {kernel}: {bad} values off tolerance")
+            require(moved > FIT_TOL, f"override {kernel}: the override "
+                    "does not move the image, so the check shows nothing")
+            if kernel == "C":
+                wb, mm = fit_blocks_direct(cfg, *planes, frame)
+                wbr, mmr = fit_blocks_direct_reference(cfg, *planes, frame)
+                check_weights("basis override", "C blocks entry", wb, mm,
+                              wbr, mmr, "float32")
+            rec[kernel] = dict(max_abs_err=err, off_tolerance=bad,
+                               builtin_moves=moved)
+    finally:
+        features.FEATURE_REGISTRY["normal_x"] = builtin
     return rec
 
 
@@ -1490,6 +1576,17 @@ def main():
         {"warp_blend": warp_blend,
          "fit_reconstruct_cholesky": fit_reconstruct_cholesky},
         {"warp_blend": FRAMES - 1, "fit_reconstruct_cholesky": FRAMES})
+    # kernel C's basis front at 16 columns: ten built-in codes and the three
+    # cross terms as extra planes
+    for name, fn in CROSS_FEATURES.items():
+        bt.register_feature(name, fn)
+    hh16 = hh_flagship.replace(**BASES["16 columns"])
+    require(len(basis_plan(hh16).planes) == 3, "16 columns: 3 extra planes")
+    paths["householder flagship 16 columns"] = run_path(
+        "householder flagship 16 columns", hh16, sc, inputs, cams, offs,
+        {"warp_blend": warp_blend,
+         "fit_reconstruct_direct": fit_reconstruct_direct},
+        {"warp_blend": FRAMES - 1, "fit_reconstruct_direct": FRAMES})
 
     # launches per frame that the in-kernel hash saves: one torch noise
     # field per fitter launch before (B, D and C each made one per call)
@@ -1569,6 +1666,21 @@ def main():
                     library=("torch.linalg.lstsq" if lib is not None
                              else no_library[key]))
 
+    def basis_entry(key, name, source, replaces, launches):
+        # the basis kernel at its main path's basis, f32 tmp; max |err|
+        # over every basis and tmp dtype of [basis B] / [basis C]
+        r = basis[key]
+        err = max(v["max_abs_err"] for k, v in basis.items()
+                  if k.startswith(key[0] + " "))
+        lib = r.get("library_ms")
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=launches, max_abs_err=err,
+                    ms=r["wrapper_ms"], plain_ms=r["plain_ms"],
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    library_ms=lib, device_ms=r["device_ms"],
+                    library=("torch.linalg.lstsq" if lib is not None
+                             else no_library["B"]))
+
     kernels = [
         entry("A", "warp_blend", "bmfr_tpu_torch/csrc/warp_blend.cu",
               "bmfr_tpu/ops/warp_pallas.py:745",
@@ -1588,6 +1700,18 @@ def main():
               paths["default"]["launches"]["fit_blocks_pallas"]),
         entry("E", "warp_rows", "bmfr_tpu_torch/csrc/warp_rows.cu",
               "bmfr_tpu/ops/warp_pallas.py:276", e_launches),
+        basis_entry("B first_order float32",
+                    "fit_reconstruct_cholesky (any basis)",
+                    "bmfr_tpu_torch/csrc/fitter_chol_basis.cu",
+                    "bmfr_tpu/ops/fitter_direct.py:512",
+                    paths["flagship first_order"]["launches"][
+                        "fit_reconstruct_cholesky"]),
+        basis_entry("C 16 columns float32",
+                    "fit_reconstruct_direct (any basis)",
+                    "bmfr_tpu_torch/csrc/householder_direct_basis.cu",
+                    "bmfr_tpu/ops/fitter_direct.py:255",
+                    paths["householder flagship 16 columns"]["launches"][
+                        "fit_reconstruct_direct"]),
     ]
     print(json.dumps({"paths": paths, "build_s": build_s, "basis": basis,
                       "kernel_device_ms": dev_ms,

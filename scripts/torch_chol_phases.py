@@ -1,21 +1,28 @@
-"""Where kernel B's time goes: a phase split of the Cholesky direct
-fitter (``bmfr_tpu_torch/csrc/fitter_chol.cu``) on one CUDA card.
+"""Where a fitter kernel's time goes: a phase split of kernel B (the
+Cholesky direct fitter, ``bmfr_tpu_torch/csrc/fitter_chol.cu``) or of the
+basis kernels B and C (``fitter_chol_basis.cu``,
+``householder_direct_basis.cu``) on one CUDA card.
 
     python3 scripts/torch_chol_phases.py [--root CHECKOUT]
+        [--kernel {B,B-basis,C-basis}] [--basis NAME ...]
 
-It copies the checkout's ``fitter_chol.cu`` into a temporary directory,
-adds a ``clock64()`` stamp by lane 0 of every warp at each phase marker
-of the kernel (a line ``// ---- N. <phase> ----``) and one after a
-closing barrier at the end of the kernel, builds
-that copy alone with nvcc (plus the unchanged source with ``-Xptxas -v``
-for its registers and spills), and runs it through the checkout's own
-wrapper ``fit_reconstruct_cholesky`` on the 1280x720 orbit scene's frame
-5 for each tmp dtype. Per tmp dtype it prints, as warp 0 sees them, the
-mean cycles of each phase per CTA and its share of a CTA's life; when
-each warp reaches each marker, from warp 0's first stamp (a marker inside
-a branch is stamped by the warps that take it); the most CTAs that were
-resident on one SM at once, and the device ms per call of the stamped
-and the unchanged kernel (``torch.profiler``). The stamps cost a few
+It copies the kernel's source from the checkout into a temporary
+directory, adds a ``clock64()`` stamp by lane 0 of every warp at each
+phase marker of the kernel (a line ``// ---- N. <phase> ----``) and one
+at the end of the kernel (after a closing barrier; in a kernel with early
+returns, by each warp as it leaves), builds that copy alone with nvcc
+(plus the unchanged source with ``-Xptxas -v`` for its registers and
+spills), and runs it through the checkout's own wrapper
+(``fit_reconstruct_cholesky`` or ``fit_reconstruct_direct``) on the
+1280x720 orbit scene's frame 5 for each tmp dtype: kernel B on the
+flagship, the basis kernels on each basis of ``--basis`` (the names of
+``chip_smoke.BASES``; first_order, 10 columns, and 16 columns by
+default). Per case it prints, as warp 0 sees them, the mean cycles of
+each phase per CTA and its share of a CTA's life; when each warp reaches
+each marker, from warp 0's first stamp (a marker inside a branch is
+stamped by the warps that take it); the most CTAs that were resident on
+one SM at once, and the device ms per call of the stamped and the
+unchanged kernel (``torch.profiler``). The stamps cost a few
 instructions per CTA; the device times show how much. Needs a CUDA
 device and nvcc; imports no JAX.
 """
@@ -35,6 +42,16 @@ from pathlib import Path
 SLOTS = 16
 MAX_CTAS, MAX_WARPS = 4096, 8
 MODES = ("float32", "float16", "bfloat16")
+#: per kernel: its source, the wrapper that launches it, the solver, and
+#: the name its device time is found by
+KERNELS = {
+    "B": ("fitter_chol.cu", "fit_reconstruct_cholesky", "cholesky",
+          "fit_chol_kernel"),
+    "B-basis": ("fitter_chol_basis.cu", "fit_reconstruct_cholesky",
+                "cholesky", "fit_chol_basis_kernel"),
+    "C-basis": ("householder_direct_basis.cu", "fit_reconstruct_direct",
+                "householder", "fit_direct_basis_kernel"),
+}
 
 PRELUDE = r"""
 __device__ long long bmfr_phase_clock[%(ctas)d][%(warps)d][%(slots)d];
@@ -64,10 +81,16 @@ extern "C" int bmfr_phase_clear() {
 MARKER = re.compile(r"^(\s*)// ---- (\d+)\. (.*?) ----", re.M)
 
 
+INCLUDE = re.compile(r'^#include "[^"]+\.cuh"\n', re.M)
+EARLY_RETURN = re.compile(r"\breturn\s*;")
+
+
 def stamped_source(src):
     """The kernel source with a stamp at each phase marker and at the end
-    of the (first) ``__global__`` function. Returns (source, phase
-    names by slot)."""
+    of the (first) ``__global__`` function: after a closing barrier, or,
+    where the kernel returns early, by each warp as it leaves (a barrier
+    there would wait for threads that have left). Thread 0 records the
+    CTA's SM at its start. Returns (source, phase names by slot)."""
     names = {}
 
     def mark(m):
@@ -84,34 +107,42 @@ def stamped_source(src):
         depth += {"{": 1, "}": -1}.get(body[i], 0)
         if depth == 0:
             break
-    end = ("  __syncthreads();\n  BMFR_STAMP(%d);\n  if (threadIdx.x == 0) {\n"
-           "    unsigned s;\n    asm volatile(\"mov.u32 %%0, %%%%smid;\" : "
-           "\"=r\"(s));\n    bmfr_phase_sm[BMFR_CTA] = s;\n  }\n"
-           % (SLOTS - 1))
-    body = body[:i] + end + body[i:]
-    head, inc, rest = body.partition('#include "fitter_front.cuh"')
-    if not inc:
-        raise SystemExit("fitter_chol.cu does not include fitter_front.cuh")
+    kernel = body[start + 1:i]
+    leave = f"BMFR_STAMP({SLOTS - 1});"
+    if EARLY_RETURN.search(kernel):
+        kernel = EARLY_RETURN.sub("{ " + leave + " return; }", kernel)
+        end = f"  {leave}\n"
+    else:
+        end = f"  __syncthreads();\n  {leave}\n"
+    sm = ('\n  if (threadIdx.x == 0) {\n    unsigned s;\n    asm volatile('
+          '"mov.u32 %0, %%smid;" : "=r"(s));\n    bmfr_phase_sm[BMFR_CTA] '
+          '= s;\n  }')
+    body = body[:start + 1] + sm + kernel + end + body[i:]
+    includes = list(INCLUDE.finditer(body))
+    if not includes:
+        raise SystemExit("the kernel source includes no .cuh header")
+    cut = includes[-1].end()
     fill = dict(ctas=MAX_CTAS, warps=MAX_WARPS, slots=SLOTS)
-    return head + inc + PRELUDE % fill + rest + EPILOGUE % fill, names
+    return (body[:cut] + PRELUDE % fill + body[cut:] + EPILOGUE % fill,
+            names)
 
 
-def build(root, work):
-    """Build the checkout's kernel B alone and its stamped copy into
+def build(root, work, source):
+    """Build the checkout's kernel source alone and its stamped copy into
     work/, in parallel. Returns (unchanged library, stamped library, the
     unchanged source's ptxas report lines, phase names by slot)."""
     sys.path.insert(0, str(root))
     from bmfr_tpu_torch.ops import _lib
 
     csrc = root / "bmfr_tpu_torch" / "csrc"
-    src, names = stamped_source((csrc / "fitter_chol.cu").read_text())
-    copy = work / "fitter_chol_stamped.cu"
+    src, names = stamped_source((csrc / source).read_text())
+    copy = work / source.replace(".cu", "_stamped.cu")
     copy.write_text(src)
     flags = _lib.NVCC_FLAGS
     nvcc = _lib._nvcc()
-    libs = (work / "libchol.so", work / "libchol_stamped.so")
+    libs = (work / "libkernel.so", work / "libkernel_stamped.so")
     cmds = [[nvcc, *flags, "-Xptxas", "-v", "-shared", "-o", str(libs[0]),
-             str(csrc / "fitter_chol.cu")],
+             str(csrc / source)],
             [nvcc, *flags, "-I", str(csrc), "-shared", "-o", str(libs[1]),
              str(copy)]]
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
@@ -190,13 +221,34 @@ def summarize(clk, sm, names):
                 warp_arrival_cycles=arrive)
 
 
+def report_case(label, rec):
+    print(f"[{label}] {rec['ctas']} CTAs, at most "
+          f"{rec['most_resident_per_sm']} resident per SM; CTA life "
+          f"{rec['life_mean_cycles']:.0f} cycles; SM busy span "
+          f"{rec['sm_span_mean_cycles']:.0f} cycles (~"
+          f"{rec['cycles_per_us']:.0f} cycles/us); device "
+          f"{rec['device_ms']:.4f} ms per call (stamped "
+          f"{rec['stamped_device_ms']:.4f})")
+    for name, p in rec["phases"].items():
+        print(f"[{label}]   {name:<40} {p['mean_cycles']:9.0f} cycles "
+              f"{100 * p['share']:5.1f} %")
+    for name, means in rec["warp_arrival_cycles"].items():
+        print(f"[{label}]   warps reach '{name[:36]}' at "
+              + ", ".join("-" if m is None else f"{m:.0f}" for m in means))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=".", help="a checkout of the repository")
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="B")
+    ap.add_argument("--basis", action="append",
+                    help="a basis of chip_smoke.BASES (basis kernels only; "
+                         "repeatable; default first_order and 16 columns)")
     args = ap.parse_args()
     root = Path(args.root).resolve()
+    source, wrapper, solver, kname = KERNELS[args.kernel]
     work = Path(tempfile.mkdtemp(prefix="chol_phases_"))
-    libs, report, names = build(root, work)
+    libs, report, names = build(root, work, source)
 
     import numpy as np
     import torch
@@ -205,8 +257,7 @@ def main():
     import bmfr_tpu_torch as bt
     import chip_smoke as cs
     from bmfr_tpu_torch.io.fixtures import synthetic_sequence
-    from bmfr_tpu_torch.ops import _lib
-    from bmfr_tpu_torch.ops.fitter_direct import fit_reconstruct_cholesky
+    from bmfr_tpu_torch.ops import _lib, fitter_direct
 
     assert bt.__file__.startswith(str(root)), bt.__file__
     if not torch.cuda.is_available():
@@ -217,25 +268,34 @@ def main():
                                         sc["noisy"], sc["albedo"], dev)
     c5 = cs.frame_of(inputs, 5)
     base = bt.BMFRConfig(image_width=cs.WIDTH, image_height=cs.HEIGHT,
-                         **cs.SCENE_LIMITS, **bt.FLAGSHIP)
+                         **cs.SCENE_LIMITS, **bt.FLAGSHIP).replace(
+                             solver=solver)
+    if args.kernel == "B":
+        bases = {"default": {}}
+    else:
+        for name, fn in cs.CROSS_FEATURES.items():
+            bt.register_feature(name, fn)
+        bases = {b: cs.BASES[b]
+                 for b in args.basis or ("first_order", "16 columns")}
+    cases = {(b, m): base.replace(tmp_data_dtype=m, **kw)
+             for b, kw in bases.items() for m in MODES}
+    fit = getattr(fitter_direct, wrapper)
 
     def run(cfg):
-        return fit_reconstruct_cholesky(cfg, c5.normals, c5.positions,
-                                        c5.noisy, 5)
+        return fit(cfg, c5.normals, c5.positions, c5.noisy, 5)
 
     # the unchanged kernel's device times, then the stamped copy's
     _lib._lib = load(libs[0], _lib._SIGNATURES)
-    plain_ms = {m: cs.kernel_device_ms(
-        lambda: run(base.replace(tmp_data_dtype=m)), "fit_chol", 20)
-        for m in MODES}
+    plain_ms = {key: cs.kernel_device_ms(lambda: run(cfg), kname, 20)
+                for key, cfg in cases.items()}
     stamped = _lib._lib = load(libs[1], _lib._SIGNATURES)
-    out = dict(root=str(root), gpu=cs.gpu_line(), ptxas=report, modes={})
+    out = dict(root=str(root), kernel=args.kernel, source=source,
+               gpu=cs.gpu_line(), ptxas=report, cases={})
     print(f"[gpu] {out['gpu']}")
     for line in report:
         print(f"[ptxas] {line}")
-    for mode in MODES:
-        cfg = base.replace(tmp_data_dtype=mode)
-        stamped_ms = cs.kernel_device_ms(lambda: run(cfg), "fit_chol", 20)
+    for (bname, mode), cfg in cases.items():
+        stamped_ms = cs.kernel_device_ms(lambda: run(cfg), kname, 20)
         assert stamped.bmfr_phase_clear() == 0
         run(cfg)
         torch.cuda.synchronize()
@@ -246,22 +306,14 @@ def main():
             sm.ctypes.data_as(ctypes.c_void_p)) == 0
         rec = summarize(clk, sm, names)
         span_max = rec.pop("sm_span_max_cycles")
-        rec.update(device_ms=plain_ms[mode], stamped_device_ms=stamped_ms,
+        rec.update(columns=cfg.buffer_count,
+                   device_ms=plain_ms[bname, mode],
+                   stamped_device_ms=stamped_ms,
                    # the SM clock, as the longest SM span over the call
                    cycles_per_us=float(span_max / (stamped_ms * 1e3)))
-        out["modes"][mode] = rec
-        print(f"[{mode}] {rec['ctas']} CTAs, at most "
-              f"{rec['most_resident_per_sm']} resident per SM; CTA life "
-              f"{rec['life_mean_cycles']:.0f} cycles; SM busy span "
-              f"{rec['sm_span_mean_cycles']:.0f} cycles (~"
-              f"{rec['cycles_per_us']:.0f} cycles/us); device "
-              f"{plain_ms[mode]:.4f} ms per call (stamped {stamped_ms:.4f})")
-        for label, p in rec["phases"].items():
-            print(f"[{mode}]   {label:<40} {p['mean_cycles']:9.0f} cycles "
-                  f"{100 * p['share']:5.1f} %")
-        for label, means in rec["warp_arrival_cycles"].items():
-            print(f"[{mode}]   warps reach '{label[:36]}' at "
-                  + ", ".join("-" if m is None else f"{m:.0f}" for m in means))
+        label = f"{args.kernel} {bname} {mode}"
+        out["cases"][label] = rec
+        report_case(label, rec)
     print(json.dumps(out))
 
 

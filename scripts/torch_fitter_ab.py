@@ -9,8 +9,13 @@ change) inside one call on one card, in turns:
 Each root runs in a fresh interpreter that imports that root's
 ``bmfr_tpu_torch`` (and builds its kernels there) and the helpers of that
 root's ``chip_smoke.py``. Kernel B runs on frame 5 of the 1280x720 orbit
-scene with f32, f16 and bf16 tmp; for each root the table gives the max
-|difference| of B's, C's and D's outputs from the first root's.
+scene with f32, f16 and bf16 tmp; the basis kernels B and C on each basis
+of ``chip_smoke.BASES`` (4, 7, 10 and 16 columns) in each tmp dtype, the
+kernel alone and every device kernel of the call (a front that evaluates
+features in torch kernels pays for them there); for
+each root the table gives the max |difference| of B's, C's and D's
+outputs from the first root's. Each path runs eager (kernels and busy ms
+per frame) and compiled (steady ms/frame of 3 runs, CUDA events).
 Prints one JSON line per root, then a table. Needs a CUDA device;
 imports no JAX.
 """
@@ -97,17 +102,44 @@ out["c_ms"] = cs.kernel_device_ms(run_c, "fit_direct", CALLS)
 saved["C image"], saved["C weights"] = (x.cpu().numpy() for x in run_c())
 out["c_blocks_ms"] = cs.kernel_device_ms(lambda: fit_blocks_direct(
     hh, c5.normals, c5.positions, c5.noisy, 5), "fit_direct", CALLS)
+for name, fn in cs.CROSS_FEATURES.items():
+    bt.register_feature(name, fn)
+out["basis_ms"], out["basis_call_ms"] = {}, {}
+for kernel, fit, kname, base in (
+        ("B", fit_reconstruct_cholesky, "fit_chol_basis_kernel", flagship),
+        ("C", fit_reconstruct_direct, "fit_direct_basis_kernel", hh)):
+    for dtype in B_DTYPES:
+        for bname, kw in cs.BASES.items():
+            cfg = base.replace(tmp_data_dtype=dtype, **kw)
+            run_k = lambda: fit(cfg, c5.normals, c5.positions, c5.noisy, 5)
+            key = f"{kernel} {bname} {dtype}"
+            out["basis_ms"][key] = cs.kernel_device_ms(run_k, kname, CALLS)
+            # every device kernel of the call: the parent's basis front
+            # evaluated all F features in torch kernels before the fitter
+            out["basis_call_ms"][key] = cs.kernel_device_ms(run_k, "", CALLS)
+            saved[f"{key} image"] = run_k()[0].cpu().numpy()
 np.savez(SAVE, **saved)
 # the eager steady step: chip_smoke's steady_frames takes a mode since the
 # compiled step, a plain-versions flag before it
 eager = ("eager" if "mode" in inspect.signature(cs.steady_frames).parameters
          else False)
 for label, cfg in (("flagship", flagship), ("default", exact),
-                   ("householder_flagship", hh)):
+                   ("householder_flagship", hh),
+                   ("flagship first_order",
+                    flagship.replace(**cs.BASES["first_order"]))):
     run = cs.steady_frames(cfg, inputs, cams, offs, eager)[0]
     run()
     torch.cuda.synchronize()
-    out["paths"][label] = cs.device_breakdown(label, run, T - 1)
+    out["paths"][label] = cs.device_breakdown(label, run, T - 1) or {}
+    run, start, end, _ = cs.steady_frames(cfg, inputs, cams, offs,
+                                          "compiled")
+    run()
+    ms = []
+    for _ in range(3):
+        run()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end) / (T - 1))
+    out["paths"][label]["compiled_ms_per_frame"] = ms
 print("RESULT " + json.dumps(out))
 """
 
@@ -151,14 +183,23 @@ def main():
     print("C reconstruct     " + "  ".join(f"{r['c_ms']:.4f}" for r in results))
     print("C blocks          " + "  ".join(
         f"{r['c_blocks_ms']:.4f}" for r in results))
+    print("basis kernel ms (all device kernels of the call)")
+    for key in results[0]["basis_ms"]:
+        print(f"{key:<30}  " + "  ".join(
+            f"{r['basis_ms'][key]:.4f} ({r['basis_call_ms'][key]:.4f})"
+            for r in results))
     print("max |diff| from the first root's output")
     for key in outputs[0]:
-        print(f"{key:>24}  " + "  ".join(
+        print(f"{key:>30}  " + "  ".join(
             f"{r['max_abs_diff_from_first'][key]:.3e}" for r in results))
     for label in results[0]["paths"]:
         print(f"{label} kernels/frame, busy ms/frame  " + "  ".join(
             f"{r['paths'][label]['kernels_per_frame']:.1f}, "
             f"{r['paths'][label]['busy_ms_per_frame']:.4f}" for r in results))
+        print(f"{label} compiled ms/frame  " + "  ".join(
+            "/".join(f"{m:.4f}" for m in
+                     r["paths"][label]["compiled_ms_per_frame"])
+            for r in results))
 
 
 if __name__ == "__main__":

@@ -125,7 +125,7 @@ def test_plain_blocks_entry_matches_jax_on_a_basis(tiny_cfg, planes,
 
 def test_register_feature_reaches_both_sides(tiny_cfg, planes):
     """A feature registered on each side under one name is what both the
-    plain planes of the port's basis front and the JAX registry
+    extra plane of the port's basis front and the JAX registry
     evaluate; a basis of the default 10 with that feature swapped in
     still meets the JAX Householder fitter."""
     name = "test_normal_xy_sum"
@@ -141,10 +141,12 @@ def test_register_feature_reaches_both_sides(tiny_cfg, planes):
         jcfg = tiny_cfg.replace(fitter_impl="pallas_direct",
                                 features_scaled=scaled).validate()
         cfg = bt.config_from_jax(jcfg)
+        # the basis front stages the registered feature as its one extra
+        # plane; the built-in ones it computes in the kernel
+        assert fitter_direct.basis_plan(cfg).planes == (name,)
         got = fitter_direct.basis_planes(cfg, n, p).numpy()
         want = np.asarray(jfeat.evaluate_features(
-            jcfg.all_features, jnp.asarray(planes[0:3]),
-            jnp.asarray(planes[3:6])))
+            (name,), jnp.asarray(planes[0:3]), jnp.asarray(planes[3:6])))
         np.testing.assert_array_equal(got, want)
         w_j = np.asarray(_jax_direct(jcfg, "fit_blocks_direct",
                                      jnp.asarray(planes), jnp.int32(1))[0])

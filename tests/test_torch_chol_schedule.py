@@ -7,7 +7,8 @@ row). This file replays that schedule step by step in f32 PyTorch and
 holds it bit for bit to the plain version's left-looking loops
 (``fitter.cholesky_solve``, ``_chol_kernel``'s order), which shows that
 every entry takes its subtractions in the same order. It also checks that
-``scripts/torch_chol_phases.py`` finds every phase marker of the kernel.
+``scripts/torch_chol_phases.py`` finds every phase marker of kernel B and
+of the basis kernels B and C.
 """
 
 import importlib.util
@@ -121,11 +122,15 @@ def test_basis_schedule_equals_left_looking_bitwise(nf):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
-def test_phase_script_stamps_every_phase():
+@pytest.mark.parametrize("kernel,phases", [
+    ("B", [1, 2, 3, 4, 5]), ("B-basis", [1, 2, 3, 4, 5]),
+    ("C-basis", [1, 2, 3, 4])])
+def test_phase_script_stamps_every_phase(kernel, phases):
     torch_chol_phases = phases_script()
-    src = (ROOT / "bmfr_tpu_torch" / "csrc" / "fitter_chol.cu").read_text()
+    source = torch_chol_phases.KERNELS[kernel][0]
+    src = (ROOT / "bmfr_tpu_torch" / "csrc" / source).read_text()
     stamped, names = torch_chol_phases.stamped_source(src)
-    assert sorted(names) == [1, 2, 3, 4, 5]
+    assert sorted(names) == phases
     for slot in [*names, torch_chol_phases.SLOTS - 1]:
         assert stamped.count(f"BMFR_STAMP({slot});") == 1
     # the closing stamp follows a barrier at the kernel's end, which every
@@ -133,6 +138,24 @@ def test_phase_script_stamps_every_phase():
     kernel = stamped[stamped.index("__global__"):stamped.index("int launch(")]
     assert "__syncthreads();\n  BMFR_STAMP(15);" in kernel
     assert "return" not in kernel
+    # the stamps' prelude follows the source's last header
+    assert stamped.index("bmfr_phase_clock[") > stamped.rindex('#include "')
+
+
+def test_phase_script_stamps_early_returns():
+    """A kernel that returns early gets the closing stamp at each return
+    and at its end, with no closing barrier (it would wait for threads
+    that have left)."""
+    tcp = phases_script()
+    src = ('#include "x.cuh"\n__global__ void k(int* o) {\n'
+           '  // ---- 1. one ----\n  if (o == nullptr) return;\n'
+           '  // ---- 2. two ----\n  o[0] = 1;\n}\nint launch() {}\n')
+    stamped, names = tcp.stamped_source(src)
+    assert names == {1: "one", 2: "two"}
+    kernel = stamped[stamped.index("__global__"):stamped.index("int launch(")]
+    assert kernel.count("BMFR_STAMP(15);") == 2
+    assert "{ BMFR_STAMP(15); return; }" in kernel
+    assert "__syncthreads()" not in kernel
 
 
 def test_phase_summary_from_fake_stamps():

@@ -799,6 +799,54 @@ def test_basis_kernels_match_plain(cuda, monkeypatch, cross_features, kernel,
         assert d_got <= 2 ** 0.5 * d_ref, (d_got, d_ref)
 
 
+@pytest.mark.parametrize("kernel", ["B", "C"])
+def test_reregistered_default_feature_on_card(cuda, kernel):
+    """``normal_x`` registered anew (as -n[0]) on the default basis: the
+    name no longer holds its built-in function, so kernels B and C take
+    the basis front (``basis_plan``) and stage the registry's plane, and
+    equal their plain versions, which evaluate the registry, at the
+    tolerances above. Before the plan chose by the names alone, the
+    kernels computed the built-in +n[0] on the card. The registry is
+    restored after."""
+    from bmfr_tpu_torch import features
+
+    H, W, frame = 120, 200, 5
+    cfg = scene_cfg(H, W).replace(
+        solver="cholesky" if kernel == "B" else "householder")
+    inputs, _, _ = scene(H, W, cuda, frames=1)
+    planes = (inputs.normals[0], inputs.positions[0], inputs.noisy[0])
+    fit, plain = ((fit_reconstruct_cholesky,
+                   fit_reconstruct_cholesky_reference) if kernel == "B" else
+                  (fitter_direct.fit_reconstruct_direct,
+                   fitter_direct.fit_reconstruct_direct_reference))
+    builtin_img, _ = fit(cfg, *planes, frame)
+    builtin = features.FEATURE_REGISTRY["normal_x"]
+    features.register_feature("normal_x", lambda n, p: -n[0])
+    try:
+        plan = fitter_direct.basis_plan(cfg)
+        assert not plan.default and plan.planes == ("normal_x",)
+        n0 = fit.launches
+        got, w = fit(cfg, *planes, frame)
+        assert fit.launches == n0 + 1
+        want, w_ref = plain(cfg, *planes, frame)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=5e-3, atol=5e-3)
+        assert torch.equal((w == 0).all(dim=(1, 2)),
+                           (w_ref == 0).all(dim=(1, 2)))
+        # the override moves the image: the built-in basis is not the answer
+        assert float((builtin_img - want).abs().max()) > 5e-3
+        if kernel == "C":
+            w, mm = fitter_direct.fit_blocks_direct(cfg, *planes, frame)
+            w_ref, mm_ref = fitter_direct.fit_blocks_direct_reference(
+                cfg, *planes, frame)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(mm, mm_ref, rtol=1e-6, atol=1e-6)
+            torch.testing.assert_close(w, w_ref, rtol=2e-3, atol=2e-3)
+    finally:
+        features.FEATURE_REGISTRY["normal_x"] = builtin
+    assert fitter_direct.basis_plan(cfg).default
+
+
 @pytest.mark.parametrize("places", [1, 2])
 @pytest.mark.parametrize("path", ["default", "flagship"])
 def test_scenes_on_card_equal_per_scene(cuda, path, places):
