@@ -76,6 +76,19 @@ timing each card-frame of S scenes (one graph of S steps); ``[entry]``
 runs ``graft_entry.entry()``'s step eagerly, captured and replayed
 (equal); ``[dryrun]`` runs ``dryrun_multichip`` on the card and on a
 mesh naming it four times (every scene equal to its per-scene run).
+``[staging]`` (after ``[stream]``) stages the orbit scene with
+``io/staging.py::stage_scene``, the EXR codec cycled per file over ZIP,
+ZIPS, PIZ, PXR24 and B44 (after one 1280x720 file of each codec on one
+thread, timed), requires the native IO library built, finds and loads
+the scene bit-equal to the arrays staging returned, streams the
+flagship (A, B) and the default path (D) from it with the ``[stream]``
+phase's launch counts, each bit-equal to ``denoise_sequence`` on those
+arrays in memory, times the flagship streamed from it beside the ZIP
+scene of ``[stream]``, runs ``python -m bmfr_tpu_torch.cli --scene
+<staged dir> --device 0`` to PNGs that the native and the Python PNG readers
+read equal to each other and to the in-memory run quantised as
+``io/exr.py::write_png`` does, and prints each codec's native decode
+seconds per file (median of 5), its bytes and ``read_exr_py``'s seconds.
 
 The last line is the JSON contract ``{"ok": true, "device": {...}}``;
 any failed check exits non-zero before it. Without a CUDA device it
@@ -87,6 +100,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import subprocess
 import sys
 import tempfile
 import time
@@ -95,13 +109,14 @@ import numpy as np
 import torch
 
 import bmfr_tpu_torch as bt
-from bmfr_tpu_torch.io import native
+from bmfr_tpu_torch.io import exr_py, native, png
 from bmfr_tpu_torch.io.dataset import discover_scenes
 from bmfr_tpu_torch.io.export import export_scene, write_camera_header
 from bmfr_tpu_torch import graft_entry, parity
 from bmfr_tpu_torch.fidelity import (device_name, print_report, run_sweep,
                                      synthetic_scenes)
 from bmfr_tpu_torch.io.fixtures import synthetic_sequence
+from bmfr_tpu_torch.io.staging import STAGE_CODECS, stage_scene
 from bmfr_tpu_torch.metrics import psnr
 from bmfr_tpu_torch.ops import _lib
 from bmfr_tpu_torch.ops.blockify import STORAGE_DTYPES, build_feature_blocks
@@ -715,6 +730,208 @@ def _stream_phase(root, sc, inputs, cams, offs, flagship, exact, dev,
         temporal_carry_kernels_per_frame=kpf,
         packed_carry_kernels_per_frame=packed_kpf,
         max_memory_allocated=peak, load_frames_s=load_s)
+    return rec
+
+
+def staging_phase(sc, flagship, exact, dev, zip_timing):
+    """The [staging] phase, in a temporary directory it removes: stage the
+    orbit scene with the EXR codec cycled per file, load it back bit for
+    bit, stream the flagship and the default path from it, run the CLI on
+    it to PNGs and time the decode of each codec. Returns its record."""
+    root = tempfile.mkdtemp(prefix="bmfr_staging_")
+    try:
+        return _staging_phase(root, sc, flagship, exact, dev, zip_timing)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _staging_phase(root, sc, flagship, exact, dev, zip_timing):
+    rec = {}
+    zip_load_s = zip_timing["load_frames_s"]
+    native.build()
+    require(native.library_path().exists(),
+            f"staging: no native IO library at {native.library_path()}")
+    free = shutil.disk_usage(root).free
+    require(free > 8 * sc["noisy"].nbytes,
+            f"staging: {free} B free in {root}")
+    series = dict(color="noisy", shading_normal="normals",
+                  world_position="positions", albedo="albedo")
+
+    # ---- one 1280x720 file at a time per codec, then the whole scene ----
+    one = {k: sc[k][:1] for k in (*series.values(), "camera_matrices",
+                                  "pixel_offsets")}
+    write_s = {}
+    for codec in STAGE_CODECS:
+        t0 = time.perf_counter()
+        stage_scene(os.path.join(root, "one", codec), one, codecs=(codec,),
+                    threads=1)
+        write_s[codec] = (time.perf_counter() - t0) / len(series)
+    shutil.rmtree(os.path.join(root, "one"))
+    print(f"[staging] {gpu_line()}: write s per {WIDTH}x{HEIGHT} f32 file, "
+          "one thread (B44 with its read-back): " + ", ".join(
+              f"{c} {s:.4f}" for c, s in write_s.items()))
+    scene_dir = os.path.join(root, "scenes", "orbit")
+    t0 = time.perf_counter()
+    expected = stage_scene(scene_dir, sc)
+    stage_s = time.perf_counter() - t0
+    exrs = sorted(f for f in os.listdir(scene_dir) if f.endswith(".exr"))
+    codec_of = {f"{buf}{t}.exr": STAGE_CODECS[(i * FRAMES + t)
+                                              % len(STAGE_CODECS)]
+                for i, buf in enumerate(series) for t in range(FRAMES)}
+    per_codec = {c: sorted(f for f, k in codec_of.items() if k == c)
+                 for c in STAGE_CODECS}
+    file_bytes = {c: [os.path.getsize(os.path.join(scene_dir, f))
+                      for f in fs] for c, fs in per_codec.items()}
+    print(f"[staging] stage_scene {WIDTH}x{HEIGHT}x{FRAMES}: {len(exrs)} "
+          f"files ({len(codec_of)} series files: " + ", ".join(
+              f"{c} {len(fs)}" for c, fs in per_codec.items())
+          + f"; {FRAMES} ZIP references) in {stage_s:.2f} s on "
+          f"{os.cpu_count()} threads")
+    rec.update(write_s_per_file=write_s, stage_s=stage_s,
+               files_per_codec={c: len(fs) for c, fs in per_codec.items()},
+               mean_bytes_per_file={c: float(np.mean(b))
+                                    for c, b in file_bytes.items()})
+
+    # ---- discover, load, bit-equal to what staging returned ----
+    scenes = discover_scenes(os.path.dirname(scene_dir))
+    require([(os.path.basename(s.path), s.frame_count, s.width, s.height)
+             for s in scenes] == [("orbit", FRAMES, WIDTH, HEIGHT)],
+            f"staging: discover_scenes found {scenes}")
+    t0 = time.perf_counter()
+    data = scenes[0].load_frames()
+    load_s = time.perf_counter() - t0
+    same = all(np.array_equal(data[key].view(np.uint32),
+                              expected[buf].view(np.uint32))
+               for buf, key in series.items()) and all(
+        np.array_equal(data[k], sc[k]) for k in ("camera_matrices",
+                                                 "pixel_offsets"))
+    print(f"[staging] load_frames of {FRAMES} frames (every codec) "
+          f"{load_s:.2f} s vs {zip_load_s:.2f} s for the [stream] phase's "
+          f"ZIP scene; bit-equal to stage_scene's expected arrays: {same}")
+    require(same, "staging: load_frames differs from the expected arrays")
+    rec.update(load_frames_s=load_s, zip_load_frames_s=zip_load_s)
+    del data
+    inputs = bt.frame_inputs_from_numpy(
+        expected["shading_normal"], expected["world_position"],
+        expected["color"], expected["albedo"], dev)
+    cams = torch.from_numpy(sc["camera_matrices"]).to(dev)
+    offs = torch.from_numpy(sc["pixel_offsets"]).to(dev)
+
+    # ---- the flagship and the default path streamed from the staged
+    # scene, vs denoise_sequence on the expected arrays in memory ----
+    for label, cfg, counters, want in (
+            ("flagship", flagship,
+             {"warp_blend": warp_blend,
+              "fit_reconstruct_cholesky": fit_reconstruct_cholesky},
+             {"warp_blend": FRAMES - 1, "fit_reconstruct_cholesky": FRAMES}),
+            ("default", exact,
+             {"fit_blocks_pallas": fit_blocks_pallas, "warp_rows": warp_rows},
+             {"fit_blocks_pallas": FRAMES, "warp_rows": 0})):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        got = bt.stream_scene(cfg, scenes[0], chunk_frames=STREAM_CHUNK,
+                              device=dev)
+        run_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        ref = bt.denoise_sequence(cfg, inputs, cams, offs).cpu().numpy()
+        equal = bool(np.array_equal(got, ref))
+        err = float(np.abs(got - ref).max())
+        print(f"[staging {label}] stream_scene of the staged scene, chunks "
+              f"of {STREAM_CHUNK} ({run_s:.2f} s): launches {launches}; "
+              f"bit-equal to denoise_sequence on the expected arrays: "
+              f"{equal} (max |diff| {err})")
+        require(launches == want, f"staging {label}: launches {launches}, "
+                f"expected {want}")
+        require(equal, f"staging {label}: differs from denoise_sequence by "
+                f"{err}")
+        rec[label] = dict(launches=launches, bit_equal=equal, run_s=run_s)
+    timings = {}
+    t0 = time.perf_counter()
+    bt.stream_scene(flagship, scenes[0], chunk_frames=STREAM_CHUNK,
+                    device=dev, timings=timings)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / FRAMES
+    print(f"[staging time] {gpu_line()}: flagship stream_scene of the "
+          f"staged scene (every codec): wall {wall_ms:.4f} ms/frame, decode "
+          f"s/chunk " + ", ".join(f"{d:.4f}" for d in timings["decode_s"])
+          + f"; the [stream] phase's ZIP scene: wall "
+          f"{zip_timing['wall_ms_per_frame']:.4f} ms/frame, decode s/chunk "
+          + ", ".join(f"{d:.4f}" for d in zip_timing["decode_s_per_chunk"]))
+    rec["timing"] = dict(wall_ms_per_frame=wall_ms,
+                         decode_s_per_chunk=timings["decode_s"],
+                         ingest_s_per_chunk=timings["ingest_s"])
+
+    # ---- the CLI on the staged scene, its PNGs through both readers ----
+    out_dir = os.path.join(root, "pngs")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "bmfr_tpu_torch.cli", "--scene", scene_dir,
+         "--device", "0", "--output", out_dir], capture_output=True,
+        text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    cli_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"staging: the CLI exited "
+            f"{proc.returncode}:\n{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    cam = scenes[0].load_camera()
+    cli_cfg = exact.replace(
+        position_limit_squared=cam["position_limit_squared"],
+        normal_limit_squared=cam["normal_limit_squared"])
+    res = bt.denoise_sequence(cli_cfg, inputs, cams, offs).cpu().numpy()
+    want = (np.clip(np.moveaxis(res, 1, -1), 0.0, 1.0) * 255.0
+            + 0.5).astype(np.uint8) / np.float32(255.0)
+    pngs = sorted(os.listdir(out_dir))
+    require(pngs == sorted(f"output{t}.png" for t in range(FRAMES)),
+            f"staging: the CLI wrote {pngs}")
+    readers_equal = quantised_equal = True
+    py_s = 0.0
+    for t in range(FRAMES):
+        path = os.path.join(out_dir, f"output{t}.png")
+        a = png.read_png_rgb01(path)
+        t0 = time.perf_counter()
+        b = png.read_png_rgb01_py(path)
+        py_s += time.perf_counter() - t0
+        readers_equal &= bool(np.array_equal(a.view(np.uint32),
+                                             b.view(np.uint32)))
+        quantised_equal &= bool(np.array_equal(a, want[t]))
+    print(f"[staging cli] python -m bmfr_tpu_torch.cli --scene <staged> "
+          f"--device 0: {cli_s:.2f} s, {len(pngs)} PNGs; native and Python "
+          f"PNG readers equal: {readers_equal} (Python reader "
+          f"{py_s / FRAMES:.4f} s per PNG); equal to the in-memory default "
+          f"path quantised as io/exr.py::write_png: {quantised_equal}; "
+          + " ".join(line.strip() for line in proc.stdout.splitlines()
+                     if "Full frame" in line))
+    require(readers_equal, "staging: the PNG readers disagree")
+    require(quantised_equal, "staging: the CLI's PNGs differ from the "
+            "in-memory run")
+    rec["cli"] = dict(s=cli_s, readers_equal=readers_equal,
+                      quantised_equal=quantised_equal,
+                      py_png_s=py_s / FRAMES)
+
+    # ---- decode by codec: color<k>.exr, k = 0..4, holds codec k ----
+    decode = {}
+    print(f"[staging decode] {gpu_line()}")
+    for k, codec in enumerate(STAGE_CODECS):
+        path = os.path.join(scene_dir, f"color{k}.exr")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            native.read_exr(path)
+            times.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        py = exr_py.read_exr_py(path)
+        py_s = time.perf_counter() - t0
+        require(np.array_equal(py.view(np.uint32),
+                               expected["color"][k].view(np.uint32)),
+                f"staging: read_exr_py differs on {codec}")
+        decode[codec] = dict(native_s=float(np.median(times)),
+                             bytes=os.path.getsize(path), read_exr_py_s=py_s)
+        print(f"[staging decode] {codec}: native read_exr "
+              f"{decode[codec]['native_s']:.4f} s per {WIDTH}x{HEIGHT} file "
+              f"(median of 5), {decode[codec]['bytes']} B on disk (mean "
+              f"{rec['mean_bytes_per_file'][codec]:.0f} B over its "
+              f"{len(per_codec[codec])} files; raw f32 "
+              f"{sc['noisy'][0].nbytes} B); read_exr_py {py_s:.3f} s")
+    rec["decode"] = decode
     return rec
 
 
@@ -1613,6 +1830,13 @@ def main():
     paths["stream"] = stream_phase(
         sc, inputs, cams, offs, flagship, exact, dev,
         (paths["flagship"]["profile"] or {}).get("kernels_per_frame"))
+
+    # ---- [staging]: the scene staged in every EXR codec, loaded, streamed
+    # and run through the CLI ----
+    t0 = time.perf_counter()
+    paths["staging"] = staging_phase(sc, flagship, exact, dev,
+                                     paths["stream"]["timing"])
+    print(f"[staging] the phase took {time.perf_counter() - t0:.1f} s")
 
     # ---- scene-parallel denoising, and the __graft_entry__ counterparts
     paths["scenes"] = scenes_phase(sc, flagship, exact, dev)

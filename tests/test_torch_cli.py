@@ -8,9 +8,9 @@ import os
 
 import pytest
 
-from bmfr_tpu.io.fixtures import synthetic_sequence
-from bmfr_tpu.io.staging import stage_scene
 from bmfr_tpu_torch.cli import main
+from bmfr_tpu_torch.io.fixtures import synthetic_sequence
+from bmfr_tpu_torch.io.staging import stage_scene
 
 W, H, T = 64, 48, 3
 FAST = ["--device", "cpu", "--fitter-impl", "xla", "--chunk-frames", "2"]

@@ -417,6 +417,37 @@ def test_stream_scene_on_card_equals_sequence(cuda, tmp_path, variant):
     np.testing.assert_array_equal(got, want)
 
 
+def test_staged_scene_every_codec_streams_bit_equal(cuda, tmp_path):
+    """A 64x48x3 scene staged on the card's host with the EXR codec
+    cycled per file (ZIP, ZIPS, PIZ, PXR24, B44) loads as the arrays
+    staging returns, and streamed on the card through the flagship equals
+    denoise_sequence of those arrays in memory bit for bit."""
+    from bmfr_tpu_torch.io.dataset import probe_scene
+    from bmfr_tpu_torch.io.staging import stage_scene
+
+    H, W, T = 48, 64, 3
+    cfg = scene_cfg(H, W)
+    sc = synthetic_sequence(width=W, height=H, frames=T)
+    expected = stage_scene(str(tmp_path / "orbit"), sc)
+    sd = probe_scene(str(tmp_path / "orbit"))
+    data = sd.load_frames()
+    for buf, key in (("color", "noisy"), ("shading_normal", "normals"),
+                     ("world_position", "positions"), ("albedo", "albedo")):
+        np.testing.assert_array_equal(data[key].view(np.uint32),
+                                      expected[buf].view(np.uint32))
+    warp_blend.launches = fit_reconstruct_cholesky.launches = 0
+    got = bt.stream_scene(cfg, sd, chunk_frames=2, device=cuda)
+    assert [warp_blend.launches, fit_reconstruct_cholesky.launches] == [
+        T - 1, T]
+    inputs = bt.frame_inputs_from_numpy(
+        expected["shading_normal"], expected["world_position"],
+        expected["color"], expected["albedo"], cuda)
+    want = bt.denoise_sequence(
+        cfg, inputs, torch.from_numpy(sc["camera_matrices"]).to(cuda),
+        torch.from_numpy(sc["pixel_offsets"]).to(cuda)).cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 def test_stream_scene_full_size_from_memory(cuda):
     """The flagship at 1280x720 over 3 frames from an in-memory loader
     (pageable arrays, pinned by the upload) equals denoise_sequence."""

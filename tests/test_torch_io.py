@@ -12,11 +12,11 @@ import pytest
 
 from bmfr_tpu.io import dataset as jax_dataset
 from bmfr_tpu.io.camera import parse_camera_matrices_header as jax_parse
-from bmfr_tpu.io.fixtures import synthetic_sequence
-from bmfr_tpu.io.staging import STAGE_CODECS, stage_scene
 from bmfr_tpu_torch.io import dataset, exr, native
 from bmfr_tpu_torch.io.camera import parse_camera_matrices_header
 from bmfr_tpu_torch.io.export import export_scene
+from bmfr_tpu_torch.io.fixtures import synthetic_sequence
+from bmfr_tpu_torch.io.staging import STAGE_CODECS, stage_scene
 
 REPO = Path(__file__).resolve().parents[1]
 W, H, T = 64, 48, 3
@@ -35,9 +35,9 @@ const float normal_limit_squared = 1.0f;
 
 @pytest.fixture(scope="module")
 def staged(tmp_path_factory):
-    """A 64x48x3 scene staged by the JAX package, the EXR codec cycled
-    per file over ZIP, ZIPS, PIZ, PXR24 and B44, beside a second scene
-    exported by the port."""
+    """A 64x48x3 scene staged by the port, the EXR codec cycled per file
+    over ZIP, ZIPS, PIZ, PXR24 and B44, beside a second scene exported by
+    the port."""
     root = tmp_path_factory.mktemp("scenes")
     sc = synthetic_sequence(width=W, height=H, frames=T, seed=11)
     expected = stage_scene(str(root / "a-staged"), sc, codecs=STAGE_CODECS)
