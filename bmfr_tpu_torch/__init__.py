@@ -3,7 +3,8 @@ kernels for NVIDIA Hopper (H100).
 
 A port of the JAX package :mod:`bmfr_tpu`, which stays the reference.
 The public surface is the same: channels-first ``[3, H, W]`` f32 planes
-and ``[T, 3, H, W]`` sequences, :class:`BMFRConfig`, :class:`FrameInputs`,
+and ``[T, 3, H, W]`` sequences, :class:`BMFRConfig` and
+:data:`DEFAULT_CONFIG`, :class:`FrameInputs`,
 :class:`TemporalState` and :class:`PackedState`, :func:`denoise_frame`,
 :func:`make_denoise_frame` and :func:`denoise_sequence`. It runs every
 configuration of the JAX package but one, a TPU measurement knob
@@ -32,11 +33,17 @@ renders and OpenCL output PNGs found by
 device (:mod:`.metrics`). :mod:`.oracle` is a copy of the JAX package's
 NumPy oracle, the literal restatement of ``opencl/bmfr.cl``, and
 :mod:`.parity` holds the port to it frame by frame; neither is on the
-denoise path. This package imports neither JAX nor :mod:`bmfr_tpu`.
+denoise path.
+
+Speed: ``python -m bmfr_tpu_torch.bench`` (:mod:`.bench`) is the JAX
+package's ``bench.py`` on the card (1280x720, 60 frames, the flagship,
+one JSON line), and :func:`.profile_stages.sequence_trace_report`
+(``scripts/torch_trace_scan.py``) splits the benched sequence by stage.
+This package imports neither JAX nor :mod:`bmfr_tpu`.
 """
 
 from .checkpoint import load_state, save_state
-from .config import FLAGSHIP, BMFRConfig, config_from_jax
+from .config import DEFAULT_CONFIG, FLAGSHIP, BMFRConfig, config_from_jax
 from .features import register_feature
 from .pipeline.denoise import (FrameInputs, PackedState, denoise_frame,
                                denoise_sequence, frame_inputs_from_numpy,
@@ -50,6 +57,7 @@ from .parallel import (denoise_scenes_jit, denoise_scenes_sharded,
 
 __all__ = [
     "BMFRConfig",
+    "DEFAULT_CONFIG",
     "FLAGSHIP",
     "FrameInputs",
     "PackedState",

@@ -145,6 +145,10 @@ class BMFRConfig:
         return dataclasses.replace(self, **kw)
 
 
+#: The default configuration (``bmfr_tpu.config.DEFAULT_CONFIG``): the
+#: reference-exact Householder path.
+DEFAULT_CONFIG = BMFRConfig()
+
 #: The JAX package's flagship (bench.py's config): fused warp, fused
 #: Cholesky fitter, bf16 TAA residual.
 FLAGSHIP = dict(warp_mode="pallas", fitter_impl="pallas_direct",

@@ -1,7 +1,8 @@
 """Block geometry: per-frame jitter offsets and mirrored addressing.
 
 A copy of :mod:`bmfr_tpu.geometry` (which cannot be imported without
-JAX). The constants are the reference's device table
+JAX): ``BLOCK_OFFSETS``, ``BLOCK_OFFSETS_COUNT``, ``mirror`` and
+``frame_offset``. The constants are the reference's device table
 (``opencl/bmfr.cl:267-285``); ``mirror`` is ``opencl/bmfr.cl:209-216``.
 """
 
@@ -33,6 +34,8 @@ BLOCK_OFFSETS = np.array(
     dtype=np.int32,
 )
 
+BLOCK_OFFSETS_COUNT = len(BLOCK_OFFSETS)  # 16
+
 
 def mirror(index, size):
     """Mirror an out-of-bounds index back into [0, size).
@@ -47,3 +50,10 @@ def mirror(index, size):
     over = 2 * size - index - 1
     out = np.where(index < 0, neg, np.where(index >= size, over, index))
     return out if out.ndim else out.item()
+
+
+def frame_offset(frame: int) -> np.ndarray:
+    """Block jitter offset (x, y) for a frame (opencl/bmfr.cl:315); the
+    kernels and the blockify views read the same table through
+    :func:`~bmfr_tpu_torch.ops.blockify.jitter_offset`."""
+    return BLOCK_OFFSETS[frame % BLOCK_OFFSETS_COUNT]

@@ -17,9 +17,17 @@ Here, on a steady mid-sequence transition of the synthetic orbit scene
   profiling.stage`, the JAX package's scope names), plus the kernels
   outside every range ``(unattributed)`` and the total: these rows sum to
   the frame's device time. On the CPU there is no device, and the rows
-  are the operators' host time.
+  are the operators' host time;
+- :func:`sequence_trace_report` (``scripts/torch_trace_scan.py``, the
+  counterpart of ``scripts/trace_scan.py``) splits a whole sequence, the
+  one ``python -m bmfr_tpu_torch.bench`` times, by stage.
 
-    python -m bmfr_tpu_torch.profile_stages                  # the default path
+The flags' defaults are the JAX parser's: 1280x720, 5 reps,
+``--warp-mode packed_x_bf16``; the port's own flags (``--fitter-impl``,
+``--solver``, ``--tmp-dtype``, ``--residual-dtype``) default to the
+configuration the JAX command profiles, ``BMFRConfig``'s defaults.
+
+    python -m bmfr_tpu_torch.profile_stages          # JAX's default config
     python -m bmfr_tpu_torch.profile_stages --trace --warp-mode pallas \\
         --fitter-impl pallas_direct --solver cholesky --residual-dtype bfloat16
     python -m bmfr_tpu_torch.profile_stages --device cpu --width 64 --height 48
@@ -44,10 +52,11 @@ from .ops.warp import pack_pairs_bf16
 from .ops.weighted_sum import weighted_sum
 from .pipeline import denoise
 from .pipeline.denoise import (FrameInputs, PackedState, denoise_frame,
-                               frame_inputs_from_numpy, zero_state)
+                               denoise_sequence, frame_inputs_from_numpy,
+                               zero_state)
 from .pipeline.graph import CompiledStep
-from .profiling import (STAGES, ProfilingInfo, device_events, print_report,
-                        synchronize)
+from .profiling import (RUN_RANGE, STAGES, ProfilingInfo, device_events,
+                        print_report, synchronize)
 
 #: the steady frame profiled (frame 0 -> 1 of the scene is a camera
 #: jump: it is not the typical frame)
@@ -67,7 +76,7 @@ def _build_argparser():
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--device", type=_device_arg, default="cuda",
                    help="'cuda' (the current card), a card index or 'cpu'")
-    p.add_argument("--warp-mode", default="float32",
+    p.add_argument("--warp-mode", default="packed_x_bf16",
                    choices=["float32", "packed_bf16", "packed_x_bf16",
                             "pallas"])
     p.add_argument("--fitter-impl", default="auto",
@@ -207,51 +216,50 @@ def _stage_of(event):
     return None
 
 
-def trace_report(cfg, state, inputs, cam, off, reps, device):
-    """Per-stage device ms per frame from one ``torch.profiler`` pass of
-    ``reps`` eager steady frames; returns ``(per_stage, unattributed,
-    total)`` in ms per frame. On the CPU, the operators' host time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    cuda = device.type == "cuda"
-    if isinstance(state, PackedState):
-        state = PackedState(state.src8.clone())
-    denoise_frame(cfg, state, inputs, cam, off, FRAME)       # warm
-    synchronize(device)
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    with profile(activities=acts) as prof:
-        for _ in range(reps):
-            denoise_frame(cfg, state, inputs, cam, off, FRAME)
-        synchronize(device)
-    events = prof.events()
+def _attribute(events, cuda):
+    """Group a ``torch.profiler`` event list of work run inside a
+    :data:`~bmfr_tpu_torch.profiling.RUN_RANGE` range by stage, in
+    microseconds: ``(per_stage, total, loose, inside)``, with ``loose`` the
+    work outside every stage range by name (``{name: (count, us)}``) and
+    ``inside`` each stage's work by ``(stage, name)``. On the card the
+    work is the device's kernels that started inside the run's range, each
+    under the stage range it was launched in; on the CPU, the operators'
+    host self time."""
     per = dict.fromkeys(STAGES, 0.0)
-    named = Counter()
-    if cuda:
-        for e in events:
+    inside, named = Counter(), Counter()
+    for e in events:
+        if cuda:
             s = (_stage_of(e) if e.kernels and not _runtime_call(e.name)
                  else None)
-            for k in e.kernels:
-                # a range's own span on the device timeline is no work
-                if s is not None and k.name not in STAGES:
-                    per[s] += k.duration
-                    named[k.name] += 1
-        work = device_events(events)
-        total = sum(e.time_range.elapsed_us() for e in work)
-        loose = Counter(e.name for e in work) - named
-        unit = "device"
-    else:
-        ops = [e for e in events if e.name not in STAGES]
-        for e in ops:
-            s = _stage_of(e)
-            if s is not None:
-                per[s] += e.self_cpu_time_total
-        total = sum(e.self_cpu_time_total for e in ops)
-        loose = Counter()
-        unit = "host (CPU run: no device)"
-    other = total - sum(per.values())
-    scale = 1e-3 / reps
-    print(f"Per-stage {unit} time over {reps} frames (torch.profiler, "
-          f"ms/frame):")
+            # a range's own span on the device timeline is no work
+            done = [(k.name, k.duration) for k in e.kernels
+                    if k.name not in STAGES] if s else []
+        else:
+            s = _stage_of(e) if e.name not in STAGES else None
+            done = [(e.name, e.self_cpu_time_total)] if s else []
+        for name, us in done:
+            per[s] += us
+            inside[s, name] += us
+            named[name] += 1
+    work = ([(e.name, e.time_range.elapsed_us())
+             for e in device_events(events, within=RUN_RANGE)] if cuda else
+            [(e.name, e.self_cpu_time_total) for e in events
+             if e.name not in STAGES + (RUN_RANGE,)])
+    count, us = Counter(), Counter()
+    for name, t in work:
+        count[name] += 1
+        us[name] += t
+    for (_, name), t in inside.items():
+        us[name] -= t
+    loose = {name: (count[name] - named[name], us[name]) for name in count
+             if count[name] > named[name]}
+    return per, sum(t for _, t in work), loose, inside
+
+
+def _print_stages(title, per, other, total, scale):
+    """The stage rows, ``(unattributed)`` and the total, in ms per
+    frame (``scale``: ms per microsecond and frame), with their shares."""
+    print(title)
     print(f"{'stage':<40}{'ms/frame':>12}{'share':>9}")
     print("-" * 61)
     for name in STAGES + ("(unattributed)", "total"):
@@ -259,10 +267,171 @@ def trace_report(cfg, state, inputs, cam, off, reps, device):
                                                            per.get(name))
         share = 100.0 * us / total if total else 0.0
         print(f"{name:<40}{us * scale:>12.4f}{share:>8.1f}%")
-    for name, n in loose.most_common(5):
-        print(f"  unattributed kernel x{n / reps:g}/frame: {name[:80]}")
+
+
+def trace_report(cfg, state, inputs, cam, off, reps, device):
+    """Per-stage device ms per frame from one ``torch.profiler`` pass of
+    ``reps`` eager steady frames; returns ``(per_stage, unattributed,
+    total)`` in ms per frame. On the CPU, the operators' host time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    cuda = device.type == "cuda"
+    if isinstance(state, PackedState):
+        state = PackedState(state.src8.clone())
+    denoise_frame(cfg, state, inputs, cam, off, FRAME)       # warm
+    synchronize(device)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof, record_function(RUN_RANGE):
+        for _ in range(reps):
+            denoise_frame(cfg, state, inputs, cam, off, FRAME)
+        synchronize(device)
+    per, total, loose, _ = _attribute(prof.events(), cuda)
+    other = total - sum(per.values())
+    scale = 1e-3 / reps
+    unit = "device" if cuda else "host (CPU run: no device)"
+    _print_stages(f"Per-stage {unit} time over {reps} frames "
+                  f"(torch.profiler, ms/frame):", per, other, total, scale)
+    if cuda:
+        for name, (n, _) in sorted(loose.items(),
+                                   key=lambda kv: -kv[1][0])[:5]:
+            print(f"  unattributed kernel x{n / reps:g}/frame: {name[:80]}")
     return ({k: v * scale for k, v in per.items()}, other * scale,
             total * scale)
+
+
+#: how far the eager pass's stage total may lie from the compiled
+#: sequence's busy time (``scripts/trace_scan.py``: its rows must total
+#: within 5 % of the headline)
+SEQUENCE_TOLERANCE = 0.05
+
+
+def eager_sequence(cfg, inputs, cams, offs):
+    """The sequence ``[T, 3, H, W]`` through the eager
+    :func:`denoise_frame`, frame by frame, each result copied out as
+    :func:`denoise_sequence` copies it: the work of the compiled sequence
+    less its input copies, and its values bit for bit."""
+    T = inputs.noisy.shape[0]
+    device = inputs.noisy.device
+    results = torch.empty((T, 3, cfg.image_height, cfg.image_width),
+                          dtype=torch.float32, device=device)
+    state = zero_state(cfg, device)
+    for t in range(T):
+        state, outputs = denoise_frame(
+            cfg, state, FrameInputs(*(x[t] for x in inputs)),
+            cams[max(t - 1, 0)], offs[t], t)
+        results[t] = outputs["result"]
+    return results
+
+
+def sequence_trace_report(cfg, inputs, cams, offs, device, scope=None):
+    """Per-stage device ms per frame of a whole sequence (``[T, 3, H, W]``
+    inputs on ``device``), frame 0 included: ``scripts/trace_scan.py``'s
+    table for the sequence ``bench`` times.
+
+    A replayed CUDA graph keeps no profiler range, so the stages come from
+    one profiled pass of the same frames through the eager
+    :func:`denoise_frame`, and the busy time, the device's idle time and
+    the span from one profiled :func:`denoise_sequence` (frames 1..
+    replayed). Prints the stage rows, the top 15 kernels outside every
+    stage, the kernels whose time the compiled sequence adds to the eager
+    one and, with ``scope``, the kernels of the stages (or with names)
+    containing it. On the card, raises unless the eager total lies within
+    :data:`SEQUENCE_TOLERANCE` of the compiled busy time. On the CPU the
+    rows are the operators' host time and the compiled numbers are None.
+
+    Returns ``{"stages", "unattributed", "total", "busy", "idle",
+    "span"}`` in ms per frame (``stages`` by stage name)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    cuda = device.type == "cuda"
+    T = inputs.noisy.shape[0]
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    eager_sequence(cfg, inputs, cams, offs)          # warm
+    synchronize(device)
+    with profile(activities=acts) as prof, record_function(RUN_RANGE):
+        eager_sequence(cfg, inputs, cams, offs)
+        synchronize(device)
+    events = prof.events()
+    per, total, loose, inside = _attribute(events, cuda)
+    counts = [len(device_events(events, within=RUN_RANGE)),
+              len(device_events(events))] if cuda else None
+    del prof, events
+    other = total - sum(per.values())
+    scale = 1e-3 / T
+    busy = span = None
+    if cuda:
+        denoise_sequence(cfg, inputs, cams, offs)   # warm: the capture
+        synchronize(device)
+        with profile(activities=acts) as prof, record_function(RUN_RANGE):
+            denoise_sequence(cfg, inputs, cams, offs)
+            synchronize(device)
+        events = prof.events()
+        work = device_events(events, within=RUN_RANGE)
+        counts += [len(work), len(device_events(events))]
+        del prof, events
+        if not work:
+            raise RuntimeError("the profiled sequence recorded no device "
+                               "event")
+        busy = sum(e.time_range.elapsed_us() for e in work)
+        span = (max(e.time_range.end for e in work)
+                - min(e.time_range.start for e in work))
+        added = Counter()
+        for e in work:
+            added[e.name] += e.time_range.elapsed_us()
+        for (_, name), us in inside.items():
+            added[name] -= us
+        for name, (_, us) in loose.items():
+            added[name] -= us
+    unit = "device" if cuda else "host (CPU run: no device)"
+    _print_stages(
+        f"{T}-frame sequence, warp_mode={cfg.warp_mode} fitter="
+        f"{cfg.fitter_impl} solver={cfg.solver} tier={cfg.warp_tier_impl} "
+        f"residual={cfg.residual_dtype}: per-stage {unit} ms/frame of the "
+        f"eager pass (torch.profiler, frame 0 included)", per, other, total,
+        scale)
+    rows = {"stages": {k: v * scale for k, v in per.items()},
+            "unattributed": other * scale, "total": total * scale,
+            "busy": None, "idle": None, "span": None}
+    if cuda:
+        rows.update(busy=busy * scale, idle=(span - busy) * scale,
+                    span=span * scale)
+        print(f"{'compiled sequence: total busy':<40}{busy * scale:>12.4f}")
+        print(f"{'compiled: device idle (span-busy)':<40}"
+              f"{(span - busy) * scale:>12.4f}")
+        print(f"{'compiled: span':<40}{span * scale:>12.4f}")
+        print(f"device events per frame: eager {counts[0] / T:.1f}, "
+              f"compiled {counts[2] / T:.1f} (outside the run's range, "
+              f"left out: {counts[1] - counts[0]} and "
+              f"{counts[3] - counts[2]})")
+    print("top unattributed kernels (ms/frame):")
+    for name, (n, us) in sorted(loose.items(),
+                                key=lambda kv: -kv[1][1])[:15]:
+        print(f"  {us * scale:9.4f}  x{n / T:g}/frame  {name[:100]}")
+    if scope:
+        print(f"kernels inside stage or name ~'{scope}' (ms/frame):")
+        hits = Counter()
+        for (s, name), us in inside.items():
+            if scope in s or scope in name:
+                hits[s, name] += us
+        for (s, name), us in hits.most_common(20):
+            print(f"  {us * scale:9.4f}  {s:<24}{name[:80]}")
+    if not cuda:
+        return rows
+    print("kernels the compiled sequence adds to the eager pass (ms/frame):")
+    for name, us in added.most_common(10):
+        if us > 0:
+            print(f"  {us * scale:9.4f}  {name[:100]}")
+    gap = abs(total - busy) / busy
+    print(f"eager stage total {total * scale:.4f} against compiled busy "
+          f"{busy * scale:.4f} ms/frame: {100 * gap:.2f} % apart (limit "
+          f"{100 * SEQUENCE_TOLERANCE:g} %)")
+    if gap > SEQUENCE_TOLERANCE:
+        raise RuntimeError(
+            f"the eager stage total {total * scale:.4f} ms/frame lies "
+            f"{100 * gap:.2f} % from the compiled sequence's busy "
+            f"{busy * scale:.4f} ms/frame (limit "
+            f"{100 * SEQUENCE_TOLERANCE:g} %)")
+    return rows
 
 
 def main(argv=None):

@@ -41,15 +41,36 @@ def _recording():
     return getattr(_autograd_profiler, "_is_profiler_enabled", True)
 
 
-def device_events(events):
+#: the range :func:`device_events` can keep a trace's device work to
+RUN_RANGE = "profiled_run"
+#: microseconds of slack at each end of that range: the device's clock and
+#: the host's are aligned to within tens of microseconds
+RUN_SLACK_US = 1000.0
+
+
+def device_events(events, within=None):
     """The device's own work in a ``torch.profiler`` event list (kernels,
     copies, fills): CUDA events less the spans that mirror a profiler
-    range on the device's timeline (those of :data:`STAGES` among
-    them)."""
-    return [e for e in events
+    range on the device's timeline (those of :data:`STAGES` and
+    :data:`RUN_RANGE` among them). With ``within``, the name of a host range of the same trace
+    (:data:`RUN_RANGE` around the profiled work), only the events that
+    started inside it, give or take :data:`RUN_SLACK_US`: in a long
+    process a trace once lost device events and a later trace held
+    extra ones, and events that started outside the range are no work of
+    the run it traced."""
+    work = [e for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)
-            and e.name not in STAGES]
+            and e.name not in STAGES and e.name != RUN_RANGE]
+    if within is None:
+        return work
+    ranges = [e for e in events if e.name == within
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    if not ranges:
+        raise ValueError(f"the trace holds no host range {within!r}")
+    lo = min(e.time_range.start for e in ranges) - RUN_SLACK_US
+    hi = max(e.time_range.end for e in ranges) + RUN_SLACK_US
+    return [e for e in work if lo <= e.time_range.start <= hi]
 
 
 def stage(name):

@@ -89,6 +89,20 @@ scene of ``[stream]``, runs ``python -m bmfr_tpu_torch.cli --scene
 read equal to each other and to the in-memory run quantised as
 ``io/exr.py::write_png`` does, and prints each codec's native decode
 seconds per file (median of 5), its bytes and ``read_exr_py``'s seconds.
+``[bench]`` (after ``[oracle]``) runs ``python -m bmfr_tpu_torch.bench``
+once as a subprocess with no ``BENCH_*`` set (the 60-frame 1280x720
+orbit flagship, median of 5 runs: its last line parsed, every key of
+``bench.py``'s line and the port's three, the device numbers measured,
+the launches of one run A 59 and B 60) while host threads render the
+60-frame swing and orbit scenes; then the bench's ``run_bench`` in this
+process on the swing flagship (A 59, B 60), the reference-exact default
+path (D 60) and the householder flagship (A 59, C 60), each with every
+count set to 0 just before it and read just after. ``[bench trace]``
+splits the flagship's 60-frame sequence by stage
+(``profile_stages.sequence_trace_report``: the eager pass's stages, the
+compiled sequence's busy time and span) and fails unless the eager total
+lies within 5 % of the compiled busy time. Each phase prints its
+seconds.
 
 The last line is the JSON contract ``{"ok": true, "device": {...}}``;
 any failed check exits non-zero before it. Without a CUDA device it
@@ -99,6 +113,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -112,7 +127,7 @@ import bmfr_tpu_torch as bt
 from bmfr_tpu_torch.io import exr_py, native, png
 from bmfr_tpu_torch.io.dataset import discover_scenes
 from bmfr_tpu_torch.io.export import export_scene, write_camera_header
-from bmfr_tpu_torch import graft_entry, parity
+from bmfr_tpu_torch import bench, graft_entry, parity
 from bmfr_tpu_torch.fidelity import (device_name, print_report, run_sweep,
                                      synthetic_scenes)
 from bmfr_tpu_torch.io.fixtures import synthetic_sequence
@@ -134,7 +149,9 @@ from bmfr_tpu_torch.ops.warp import (gather_taps, pack_pairs_bf16,
                                      warp_rows_reference)
 from bmfr_tpu_torch.ops.warp_blend import warp_blend, warp_blend_reference
 from bmfr_tpu_torch.pipeline.graph import CompiledStep
-from bmfr_tpu_torch.profile_stages import steady_setup, trace_report
+from bmfr_tpu_torch.profile_stages import (eager_sequence,
+                                           sequence_trace_report,
+                                           steady_setup, trace_report)
 from bmfr_tpu_torch.profiling import device_events
 from bmfr_tpu_torch.rng import feature_noise
 
@@ -407,17 +424,6 @@ def check_rows(src, iy, ix, label):
     print(f"[warp_rows] {label}: {diff} words differ of {2 * row0.numel()}")
     require(diff == 0, f"warp_rows {label}: {diff} words differ")
     return 0.0
-
-
-def eager_sequence(cfg, inputs, cams, offs):
-    """The scene through the eager ``denoise_frame``, frame by frame: the
-    reference the compiled frames are held to bit for bit."""
-    st, out = bt.zero_state(cfg, inputs.noisy.device), []
-    for t in range(FRAMES):
-        st, o = bt.denoise_frame(cfg, st, frame_of(inputs, t),
-                                 cams[max(t - 1, 0)], offs[t], t)
-        out.append(o["result"])
-    return torch.stack(out)
 
 
 def steady_frames(cfg, inputs, cams, offs, mode):
@@ -1568,6 +1574,121 @@ def dryrun_phase(dev):
     return rec
 
 
+#: the bench's sequence (``python -m bmfr_tpu_torch.bench``'s default)
+BENCH_FRAMES = 60
+#: the keys of ``bench.py``'s result line (``tests/test_torch_bench.py``
+#: holds the port's bench to ``bench.py``'s source)
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "spread_ms",
+              "reps_ms", "config", "device_span_ms_per_frame",
+              "warp_kernel_served_pct", "warp_fallback_frames")
+BENCH_LAUNCHES = re.compile(r"^\[bench\] launches per run: (\{.*\})$", re.M)
+
+
+def bench_command(flagship):
+    """``python -m bmfr_tpu_torch.bench`` once, as a user runs it (no
+    ``BENCH_*`` set: the 60-frame 1280x720 orbit flagship); its last line
+    parsed and checked, and the launches of one of its runs read from its
+    log. Returns ``(record, launches)``."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    proc = subprocess.run([sys.executable, "-m", "bmfr_tpu_torch.bench"],
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    for line in proc.stderr.splitlines():
+        print(f"[bench command] {line}")
+    require(proc.returncode == 0, f"python -m bmfr_tpu_torch.bench exited "
+            f"{proc.returncode}")
+    last = proc.stdout.strip().splitlines()[-1]
+    print(f"[bench command] {last}")
+    rec = json.loads(last)
+    require(set(rec) == set(BENCH_KEYS) | set(bench.ADDED_KEYS),
+            f"bench keys {sorted(rec)}")
+    require(rec["metric"] == f"denoise_ms_per_frame_{WIDTH}x{HEIGHT}",
+            f"bench metric {rec['metric']}")
+    require(rec["config"] == "scene=orbit warp=pallas fitter=pallas_direct "
+            "solver=cholesky residual=bfloat16 tier=steady_cond",
+            f"bench config {rec['config']}")
+    require(len(rec["reps_ms"]) == 5 and rec["value"] == round(
+        float(np.median(rec["reps_ms"])), 4), "bench: the median of 5 runs")
+    for key in ("value", "device_span_ms_per_frame", "busy_ms_per_frame",
+                "steady_ms_per_frame"):
+        require(isinstance(rec[key], float) and np.isfinite(rec[key])
+                and rec[key] > 0,
+                f"bench {key}: {rec[key]}")
+    require(rec["device"] == gpu_line(), f"bench device {rec['device']}")
+    require(rec["warp_kernel_served_pct"] == 100.0
+            and rec["warp_fallback_frames"] == 0, "bench warp record")
+    found = BENCH_LAUNCHES.search(proc.stderr)
+    require(found is not None, "bench: no launch line")
+    launches = json.loads(found.group(1))
+    require(launches == bench.expected_launches(flagship, BENCH_FRAMES),
+            f"bench launches {launches}")
+    return rec, launches
+
+
+def bench_phase(flagship, exact, hh_flagship, dev):
+    """[bench]: the bench command once, while host threads render the
+    60-frame swing and orbit scenes; then, in this process, the bench's
+    ``run_bench`` on the swing flagship, the reference-exact default path
+    and the householder flagship (orbit) at 60 frames, with every count
+    set to 0 just before each and read just after (``run_bench`` also
+    holds each of its runs to ``expected_launches``). Returns the phase's
+    record and the orbit scene on the card (for ``[bench trace]``)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        renders = {name: ex.submit(synthetic_sequence, width=WIDTH,
+                                   height=HEIGHT, frames=BENCH_FRAMES,
+                                   scene=name)
+                   for name in ("swing", "orbit")}
+        rec, launches = bench_command(flagship)
+        command_s = time.perf_counter() - t0
+        scenes = {name: f.result() for name, f in renders.items()}
+    render_s = time.perf_counter() - t0
+    print(f"[bench] the command {command_s:.1f} s; the 60-frame swing and "
+          f"orbit scenes rendered on host threads beside it by "
+          f"{render_s:.1f} s")
+    runs = {"flagship orbit (command)": dict(record=rec, launches=launches)}
+    on_card = {}
+    for label, cfg, name in (("flagship swing", flagship, "swing"),
+                             ("default", exact, "orbit"),
+                             ("householder flagship", hh_flagship, "orbit")):
+        if name not in on_card:     # one scene on the card at a time
+            on_card.clear()
+            on_card[name] = bench.scene_inputs(scenes.pop(name), dev)
+        inputs, cams, offs = on_card[name]
+        for fn in bench.COUNTERS.values():
+            fn.launches = 0
+        t1 = time.perf_counter()
+        record, out, expected = bench.run_bench(
+            cfg, inputs, cams, offs, reps=5, scene=name, log=sys.stdout)
+        got = {k: fn.launches for k, fn in bench.COUNTERS.items()}
+        require(got == expected, f"[bench] {label}: launches {got}, "
+                f"expected {expected}")
+        require(tuple(out.shape) == (BENCH_FRAMES, 3, HEIGHT, WIDTH),
+                f"[bench] {label}: output shape {tuple(out.shape)}")
+        print(f"[bench] {label}: {json.dumps(record)}; launches of one run "
+              f"{got}; {time.perf_counter() - t1:.1f} s")
+        runs[label] = dict(record=record, launches=got)
+        del out
+    print(f"[bench] the phase took {time.perf_counter() - t0:.1f} s")
+    return runs, on_card["orbit"]
+
+
+def bench_trace_phase(flagship, inputs, cams, offs, dev):
+    """[bench trace]: the flagship's 60-frame bench sequence split by
+    stage (``sequence_trace_report``), its eager stage total within 5 %
+    of the compiled sequence's busy time."""
+    t0 = time.perf_counter()
+    print(f"[bench trace] {gpu_line()}")
+    try:
+        rows = sequence_trace_report(flagship, inputs, cams, offs, dev)
+    except RuntimeError as e:
+        require(False, f"[bench trace] {e}")
+    print(f"[bench trace] the phase took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke FAIL: no CUDA device")
@@ -1873,6 +1994,14 @@ def main():
     paths["fidelity_1280x720"] = fidelity_fullres_phase(dev)
     paths["oracle"] = oracle_phase(dev)
 
+    # ---- [bench]: python -m bmfr_tpu_torch.bench, the swing flagship and
+    # the reference-exact path at 60 frames; [bench trace]: the benched
+    # sequence split by stage ----
+    paths["bench"], orbit60 = bench_phase(flagship, exact, hh_flagship, dev)
+    paths["bench trace"] = bench_trace_phase(flagship, *orbit60, dev)
+    del orbit60
+    bench_runs = paths["bench"]
+
     no_library = {
         "A": "none: no single call computes the clipped 4-tap blend of the "
              "packed state",
@@ -1880,11 +2009,16 @@ def main():
              "solve and the reconstruction",
         "E": "none: no single call computes the two clipped row loads"}
 
-    def entry(key, name, source, replaces, launches):
+    def entry(key, name, source, replaces, launches, bench_run):
         b_ms, by = bounds[key]
         lib = library_ms if key in ("C", "D") else None
+        wrapper = {"A": "warp_blend", "B": "fit_reconstruct_cholesky",
+                   "C": "fit_reconstruct_direct", "D": "fit_blocks_pallas",
+                   "E": "warp_rows"}[key]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=launches, max_abs_err=errs[key], ms=ms[key][0],
+                    launches=launches,
+                    bench_launches=bench_runs[bench_run]["launches"][wrapper],
+                    max_abs_err=errs[key], ms=ms[key][0],
                     plain_ms=ms[key][1], bound_ms=b_ms, bound_by=by,
                     library_ms=lib, device_ms=dev_ms[key],
                     library=("torch.linalg.lstsq" if lib is not None
@@ -1908,22 +2042,24 @@ def main():
     kernels = [
         entry("A", "warp_blend", "bmfr_tpu_torch/csrc/warp_blend.cu",
               "bmfr_tpu/ops/warp_pallas.py:745",
-              paths["flagship"]["launches"]["warp_blend"]),
+              paths["flagship"]["launches"]["warp_blend"],
+              "flagship orbit (command)"),
         entry("B", "fit_reconstruct_cholesky",
               "bmfr_tpu_torch/csrc/fitter_chol.cu",
               "bmfr_tpu/ops/fitter_direct.py:512",
-              paths["flagship"]["launches"]["fit_reconstruct_cholesky"]),
+              paths["flagship"]["launches"]["fit_reconstruct_cholesky"],
+              "flagship orbit (command)"),
         entry("C", "fit_reconstruct_direct",
               "bmfr_tpu_torch/csrc/householder_direct.cu",
               "bmfr_tpu/ops/fitter_direct.py:255",
               paths["householder_flagship"]["launches"][
-                  "fit_reconstruct_direct"]),
+                  "fit_reconstruct_direct"], "householder flagship"),
         entry("D", "fit_blocks_pallas",
               "bmfr_tpu_torch/csrc/householder_blocks.cu",
               "bmfr_tpu/ops/fitter_pallas.py:92",
-              paths["default"]["launches"]["fit_blocks_pallas"]),
+              paths["default"]["launches"]["fit_blocks_pallas"], "default"),
         entry("E", "warp_rows", "bmfr_tpu_torch/csrc/warp_rows.cu",
-              "bmfr_tpu/ops/warp_pallas.py:276", e_launches),
+              "bmfr_tpu/ops/warp_pallas.py:276", e_launches, "default"),
         basis_entry("B first_order float32",
                     "fit_reconstruct_cholesky (any basis)",
                     "bmfr_tpu_torch/csrc/fitter_chol_basis.cu",

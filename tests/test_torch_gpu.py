@@ -957,3 +957,39 @@ def test_entry_runs_captured_on_card(cuda):
         state, result = fn(*args)
         assert torch.equal(result, eager)
     assert isinstance(state, bt.TemporalState)
+
+
+#: the keys of ``bench.py``'s result line (``tests/test_torch_bench.py``
+#: holds the port's bench to ``bench.py``'s source)
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "spread_ms",
+              "reps_ms", "config", "device_span_ms_per_frame",
+              "warp_kernel_served_pct", "warp_fallback_frames")
+
+
+def test_bench_on_card(cuda):
+    """The bench's path at 1280x720x8: every run's launches held to A 7
+    and B 8 and its checksum to the first run's (inside ``run_bench``),
+    the output finite and equal to ``denoise_sequence``'s, the record's
+    keys, and the device numbers measured."""
+    import io
+
+    from bmfr_tpu_torch import bench
+
+    cfg = scene_cfg(720, 1280)
+    inputs, cams, offs = scene(720, 1280, cuda, frames=8)
+    record, out, launches = bench.run_bench(cfg, inputs, cams, offs, reps=2,
+                                            log=io.StringIO())
+    assert launches == {**dict.fromkeys(bench.COUNTERS, 0),
+                        "warp_blend": 7, "fit_reconstruct_cholesky": 8}
+    assert {k: fn.launches for k, fn in bench.COUNTERS.items()} == launches
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(out, bt.denoise_sequence(cfg, inputs, cams, offs))
+    assert set(record) == set(BENCH_KEYS) | set(bench.ADDED_KEYS)
+    assert record["metric"] == "denoise_ms_per_frame_1280x720"
+    assert record["device"] != "cpu" and len(record["reps_ms"]) == 2
+    for key in ("value", "device_span_ms_per_frame", "busy_ms_per_frame",
+                "steady_ms_per_frame"):
+        assert record[key] > 0, key
+    assert record["busy_ms_per_frame"] <= record["device_span_ms_per_frame"]
+    assert record["warp_kernel_served_pct"] == 100.0
+    assert record["warp_fallback_frames"] == 0
