@@ -82,7 +82,7 @@ from .io.fixtures import synthetic_sequence
 from .pipeline.denoise import (FrameInputs, denoise_frame, denoise_sequence,
                                frame_inputs_from_numpy, zero_state)
 from .pipeline.graph import COUNTED, compiled_step
-from .profiling import RUN_RANGE, device_events
+from .profiling import RUN_RANGE, device_events, traced_run
 
 BASELINE_MS = 1.6  # reference paper headline, BASELINE.md
 
@@ -148,8 +148,11 @@ def expected_launches(cfg, frames):
     of ``frames`` frames on a card: the fused warp (A) on every frame with
     history; the direct fitter (B for Cholesky, C for Householder) or the
     block fitter (D, Householder on the block path but ``"xla"``) on every
-    frame."""
+    frame; the reprojection (H), the K1 tail (G) and K4 + K5 (F) on every
+    frame of every path."""
     n = dict.fromkeys(COUNTERS, 0)
+    for name in ("reproject_coords", "noisy_tail", "filtered_tail"):
+        n[name] = frames
     if cfg.warp_mode == "pallas":
         n["warp_blend"] = frames - 1
     if cfg.skip_fitting:
@@ -270,13 +273,13 @@ def run_bench(cfg, inputs, cams, offs, *, reps=5, scene="orbit",
 
     steady = span_ms = busy_ms = None
     if cuda:
-        from torch.profiler import ProfilerActivity, profile, record_function
+        from torch.profiler import ProfilerActivity
 
         steady = steady_ms_per_frame(cfg, inputs, cams, offs)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            with record_function(RUN_RANGE):
-                timed()
+        torch.cuda.synchronize(dev)
+        with traced_run([ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+            timed()
         events = prof.events()
         work = device_events(events, within=RUN_RANGE)
         left_out = len(device_events(events)) - len(work)

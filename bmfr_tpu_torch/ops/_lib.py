@@ -27,8 +27,17 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("warp_blend.cu", "fitter_chol.cu", "fitter_chol_basis.cu",
            "householder_blocks.cu", "householder_blocks_smem.cu",
            "householder_direct.cu", "householder_direct_basis.cu",
-           "warp_rows.cu")
-HEADERS = ("fitter_front.cuh", "householder.cuh", "basis_front.cuh")
+           "warp_rows.cu", "reproject.cu", "noisy_tail.cu",
+           "filtered_tail.cu")
+HEADERS = ("fitter_front.cuh", "householder.cuh", "basis_front.cuh",
+           "torch_ops.cuh")
+#: the device kernels the sources define (``__global__`` names), as a
+#: profiler trace names them
+KERNELS = ("warp_blend_kernel", "fit_chol_kernel", "fit_chol_basis_kernel",
+           "fit_blocks_regs_kernel", "fit_blocks_smem_kernel",
+           "fit_direct_kernel", "fit_direct_basis_kernel", "warp_rows_kernel",
+           "reproject_kernel", "noisy_tail_kernel", "filtered_tail_kernel",
+           "filtered_tail_k4_kernel")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -64,6 +73,15 @@ _SIGNATURES = {
     "bmfr_fit_blocks_shared": (_P,) * 3 + (_I,) * 7 + (_P, _F, _P),
     # src, iy, ix, row0, row1, C, H, W, stream
     "bmfr_warp_rows": (_P,) * 5 + (_I,) * 3 + (_P,),
+    # positions, cam, offset, out, H, W, history, stream
+    "bmfr_reproject": (_P,) * 4 + (_I,) * 3 + (_P,),
+    # planes, noisy, positions, normals, accum, spp, accept, pack (or
+    # null), H, W, blend_alpha, history, stream
+    "bmfr_noisy_tail": (_P,) * 8 + (_I, _I, _F, _I, _P),
+    # filtered, planes, albedo, spp, prev_pixels, out, tone, result, pack
+    # (or null), H, W, second_alpha, taa_alpha, taa_keep, residual_bf16,
+    # accum_prev, taa, stream
+    "bmfr_filtered_tail": (_P,) * 9 + (_I, _I, _F, _F, _F, _I, _I, _I, _P),
 }
 
 _lib = None

@@ -1,0 +1,94 @@
+"""K4 + K5 + the out/result pack in one pass (kernel F) and its plain
+PyTorch version.
+
+On the TPU, XLA fuses the pre-blended K4 (:func:`bmfr_tpu.ops.accumulate.
+accumulate_filtered_data`), K5 (:func:`bmfr_tpu.ops.taa.taa`) and the
+next state's out/result words (``w_out``, ``bmfr_tpu/pipeline/
+denoise.py:272-277``) into the jitted step. On the card kernel F
+(``csrc/filtered_tail.cu``) computes them in one pass: K4 per pixel, the
+tone's YCoCg neighbourhood from shared memory (a one-pixel halo whose K4
+each tile recomputes), K5's clamp, blend and early-out, and the words.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _lib
+from .accumulate import accumulate_filtered_data
+from .frame import has_history
+from .taa import taa
+from .warp import pack_pairs_bf16
+from ..profiling import stage
+
+
+def filtered_tail_reference(cfg, filtered, planes, albedo, spp, prev_pixels,
+                            frame, history=None, pack=None):
+    """Plain PyTorch version of :func:`filtered_tail`:
+    :func:`~bmfr_tpu_torch.ops.accumulate.accumulate_filtered_data`, then
+    :func:`~bmfr_tpu_torch.ops.taa.taa`, then with ``pack`` words 5:8."""
+    with stage("k4_accumulate_filtered"):
+        out, tone = accumulate_filtered_data(cfg, filtered, planes, albedo,
+                                             spp, frame, history)
+    result = taa(cfg, prev_pixels, tone, planes, frame, history)
+    if pack is not None:
+        with stage("state_pack"):
+            pack_pairs_bf16([*out, *result], out=pack[5:8])
+    return out, tone, result
+
+
+def filtered_tail(cfg, filtered, planes, albedo, spp, prev_pixels, frame,
+                  history=None, pack=None):
+    """K4 and K5 of one frame: ``(out, tone, result)``, f32 ``[3, H, W]``
+    each (``result`` is ``tone`` itself where K5 passes the frame
+    through: no history, or ``skip_taa``) and, with ``pack`` (a
+    :class:`~bmfr_tpu_torch.pipeline.denoise.PackedState`'s i32 ``[8, H,
+    W]``), words 5:8 (out and result as bf16 pairs) written in place;
+    words 0:5 are left alone.
+
+    ``filtered``: the fitter's output f32 ``[3, H, W]``; ``planes``: the
+    warp's 13 blend planes (K4 reads 4 and 6:9, K5 9:13); ``albedo``: f32
+    ``[3, H, W]``; ``spp``: K1's new u8 ``[H, W]``; ``prev_pixels``: K1's
+    map f32 ``[2, H, W]`` (K5's off-screen early-out);
+    ``frame``/``history``: whether the frame reads history
+    (:func:`~bmfr_tpu_torch.ops.frame.has_history`).
+
+    On a CUDA tensor this launches kernel F, which equals
+    :func:`filtered_tail_reference`; on a CPU tensor it runs that plain
+    version. Any other device raises."""
+    dev = filtered.device
+    if dev.type == "cpu":
+        return filtered_tail_reference(cfg, filtered, planes, albedo, spp,
+                                       prev_pixels, frame, history, pack)
+    if dev.type != "cuda":
+        raise ValueError(f"filtered_tail: unsupported device {dev}")
+    H, W = filtered.shape[-2:]
+    _lib.check_tensor(filtered, "filtered", torch.float32, (3, H, W), dev)
+    _lib.check_tensor(planes, "planes", torch.float32, (13, H, W), dev)
+    _lib.check_tensor(albedo, "albedo", torch.float32, (3, H, W), dev)
+    _lib.check_tensor(spp, "spp", torch.uint8, (H, W), dev)
+    _lib.check_tensor(prev_pixels, "prev_pixels", torch.float32, (2, H, W),
+                      dev)
+    if pack is not None:
+        _lib.check_tensor(pack, "pack", torch.int32, (8, H, W), dev)
+    hist = has_history(frame, history)
+    run_taa = hist and not cfg.skip_taa
+    out = torch.empty((3, H, W), dtype=torch.float32, device=dev)
+    tone = torch.empty_like(out)
+    result = torch.empty_like(out) if run_taa else tone
+    alpha = np.float32(cfg.taa_blend_alpha)
+    _lib.launch("bmfr_filtered_tail", filtered.data_ptr(), planes.data_ptr(),
+                albedo.data_ptr(), spp.data_ptr(), prev_pixels.data_ptr(),
+                out.data_ptr(), tone.data_ptr(), result.data_ptr(),
+                None if pack is None else pack.data_ptr(), H, W,
+                float(np.float32(cfg.second_blend_alpha)), float(alpha),
+                float(np.float32(1.0) - alpha),
+                int(cfg.residual_dtype == "bfloat16"),
+                int(hist and not cfg.skip_second_accum), int(run_taa))
+    _lib.count_launch(filtered_tail)
+    return out, tone, result
+
+
+#: kernel launches since the count was last set to 0
+filtered_tail.launches = 0

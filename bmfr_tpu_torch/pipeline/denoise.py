@@ -3,7 +3,8 @@
 Port of :mod:`bmfr_tpu.pipeline.denoise`. Per frame (opencl/bmfr.cpp:
 417-485):
 
-1. reproject (torch);
+1. reproject (kernel H, :func:`~bmfr_tpu_torch.ops.reproject.
+   reproject_coords`);
 2. the warp branch, the 13 blend planes of the previous state:
    ``warp_mode="pallas"`` runs kernel A on the bf16 channel-pair
    :class:`PackedState` (or on the pack of a raw-plane
@@ -14,7 +15,8 @@ Port of :mod:`bmfr_tpu.pipeline.denoise`. Per frame (opencl/bmfr.cpp:
    :class:`~bmfr_tpu_torch.pipeline.state.TemporalState` with
    :func:`~bmfr_tpu_torch.ops.warp.gather_taps` in that mode and blends
    them (:func:`~bmfr_tpu_torch.ops.warp_blend.blend_gathered_taps`);
-3. the K1 tail (torch);
+3. the K1 tail and the next packed state's words 0:5 (kernel G,
+   :func:`~bmfr_tpu_torch.ops.reproject.noisy_tail`);
 4. the fitter branch, the filtered image: ``fitter_impl="pallas_direct"``
    runs kernel B (``solver="cholesky"``) or kernel C (``"householder"``)
    on the raw planes; every other ``fitter_impl`` builds the feature
@@ -22,10 +24,15 @@ Port of :mod:`bmfr_tpu.pipeline.denoise`. Per frame (opencl/bmfr.cpp:
    kernel D, or the plain path for ``"xla"`` and the Cholesky solver) and
    reconstructs them (:func:`~bmfr_tpu_torch.ops.weighted_sum.
    weighted_sum`);
-5. K4 and 6. K5 (torch);
-7. the next state, of the type of the previous one: packed into the
-   state buffer in place, or a new :class:`TemporalState` of this
-   frame's planes.
+5. K4, 6. K5 and the next packed state's words 5:8 (kernel F,
+   :func:`~bmfr_tpu_torch.ops.tail.filtered_tail`);
+7. the next state, of the type of the previous one: the state buffer
+   that kernels G and F packed in place, or a new :class:`TemporalState`
+   of this frame's planes.
+
+Kernels F, G and H stand for the stages that XLA fuses into the TPU's
+jitted step; ``plain=True`` runs the composition of the stage functions
+they replace.
 
 Frame 0 has no history: no warp or gather runs and the planes are zero
 (JAX's ``history="never"``). The reference's one-frame matrix lag (frame
@@ -46,7 +53,6 @@ import numpy as np
 import torch
 
 from ..config import check_supported
-from ..ops.accumulate import accumulate_filtered_data
 from ..ops.blockify import build_feature_blocks
 from ..ops.fitter import fit_blocks
 from ..ops.fitter_direct import (fit_reconstruct_cholesky,
@@ -55,8 +61,9 @@ from ..ops.fitter_direct import (fit_reconstruct_cholesky,
                                  fit_reconstruct_direct_reference)
 from ..ops.frame import has_history
 from ..ops.gather import floor_int
-from ..ops.reproject import accumulate_noisy_data, reproject_coords
-from ..ops.taa import taa
+from ..ops.reproject import (noisy_tail, noisy_tail_reference,
+                             reproject_coords, reproject_coords_reference)
+from ..ops.tail import filtered_tail, filtered_tail_reference
 from ..ops.warp import gather_taps, pack_pairs_bf16
 from ..ops.warp_blend import (BLEND_PLANES, blend_gathered_taps, warp_blend,
                               warp_blend_reference)
@@ -184,7 +191,11 @@ def denoise_frame(cfg, state, inputs: FrameInputs, prev_cam, pixel_offset,
     checking the kernels on the card).
 
     Each stage runs inside a profiler range under the JAX package's
-    scope name (:data:`~bmfr_tpu_torch.profiling.STAGES`).
+    scope name (:data:`~bmfr_tpu_torch.profiling.STAGES`): kernel H
+    inside ``warp_taps``, G inside ``k1_accumulate_noisy`` and F inside
+    ``k5_taa``, so ``k4_accumulate_filtered`` and ``state_pack`` hold no
+    work on the kernel path (the plain versions open them inside G's and
+    F's ranges).
 
     Returns ``(state, outputs)``; outputs holds the final ``result`` and
     the intermediates (``tone``, ``out``, ``filtered``, ``accum``,
@@ -196,33 +207,31 @@ def denoise_frame(cfg, state, inputs: FrameInputs, prev_cam, pixel_offset,
         raise ValueError("a PackedState needs warp_mode='pallas'")
     hist = has_history(frame, history)
     history = "always" if hist else "never"
+    # the packed next state: kernel G writes words 0:5 and kernel F 5:8,
+    # both after the warp read the previous words (stream order)
+    pack = state.src8 if isinstance(state, PackedState) else None
     with stage("warp_taps"):
-        pfx, pfy = reproject_coords(cfg, inputs.positions, prev_cam,
-                                    pixel_offset)
+        prev_pixels = (reproject_coords_reference if plain
+                       else reproject_coords)(cfg, inputs.positions,
+                                              prev_cam, pixel_offset, history)
+        pfx, pfy = prev_pixels
         planes, warp_stats = _warp_planes(cfg, state, inputs, pfx, pfy, hist,
                                           plain)
+    # K4 and the pack have no range of their own on the kernel path: they
+    # run inside kernels G and F (the plain versions open them)
     with stage("k1_accumulate_noisy"):
-        k1 = accumulate_noisy_data(cfg, inputs.noisy, pfx, pfy, planes,
-                                   frame, history)
+        k1 = (noisy_tail_reference if plain else noisy_tail)(
+            cfg, inputs.noisy, prev_pixels, planes, inputs.positions,
+            inputs.normals, frame, history, pack=pack)
     filtered, weights, mins_maxs = _filter(cfg, inputs, k1["accum"], frame,
                                            plain)
-    with stage("k4_accumulate_filtered"):
-        out, tone = accumulate_filtered_data(cfg, filtered, planes,
-                                             inputs.albedo, k1["spp"], frame,
-                                             history)
     with stage("k5_taa"):
-        result = taa(cfg, k1["prev_pixels"], tone, planes, frame, history)
+        out, tone, result = (filtered_tail_reference if plain
+                             else filtered_tail)(
+            cfg, filtered, planes, inputs.albedo, k1["spp"],
+            k1["prev_pixels"], frame, history, pack=pack)
 
-    if isinstance(state, PackedState):
-        # the next state, packed per channel straight into the state
-        # buffer (words 0:3 geometry, 3:5 accumulated colour + spp, 5:8
-        # out + result)
-        s = state.src8
-        with stage("state_pack"):
-            pack_pairs_bf16([*inputs.positions, *inputs.normals], out=s[0:3])
-            pack_pairs_bf16([*k1["accum"], k1["spp"].float()], out=s[3:5])
-            pack_pairs_bf16([*out, *result], out=s[5:8])
-    else:
+    if pack is None:
         state = TemporalState(normals=inputs.normals,
                               positions=inputs.positions, noisy=k1["accum"],
                               spp=k1["spp"], out=out, result=result)

@@ -53,6 +53,8 @@ from ..ops import _lib
 from ..ops.fitter_direct import (fit_blocks_direct, fit_reconstruct_cholesky,
                                  fit_reconstruct_direct)
 from ..ops.fitter_pallas import fit_blocks_pallas
+from ..ops.reproject import noisy_tail, reproject_coords
+from ..ops.tail import filtered_tail
 from ..ops.warp import warp_rows
 from ..ops.warp_blend import warp_blend
 from ..profiling import stage
@@ -61,7 +63,8 @@ from .state import TemporalState
 
 #: the kernel wrappers whose launch counters a replay advances
 COUNTED = (warp_blend, fit_reconstruct_cholesky, fit_reconstruct_direct,
-           fit_blocks_direct, fit_blocks_pallas, warp_rows)
+           fit_blocks_direct, fit_blocks_pallas, warp_rows, reproject_coords,
+           noisy_tail, filtered_tail)
 
 # one capture at a time in the process: scenes streamed on several
 # threads each capture their own step

@@ -16,8 +16,14 @@ Here, on a steady mid-sequence transition of the synthetic orbit scene
   time of the kernels launched inside its range (:func:`~bmfr_tpu_torch.
   profiling.stage`, the JAX package's scope names), plus the kernels
   outside every range ``(unattributed)`` and the total: these rows sum to
-  the frame's device time. On the CPU there is no device, and the rows
-  are the operators' host time;
+  the frame's device time. Kernel H runs inside ``warp_taps``, G inside
+  ``k1_accumulate_noisy`` and F inside ``k5_taa``, so on the kernel path
+  ``k4_accumulate_filtered`` and ``state_pack`` hold no work, as the
+  direct fitters leave ``k2_blockify`` and ``k3_weighted_sum`` empty. On
+  the card the trace must hold one device event of the port's kernels
+  for each launch counted (:func:`check_launches`). On the CPU there is
+  no device, and the rows are the operators' host time (the plain
+  versions open the K4 and pack ranges inside G's and F's);
 - :func:`sequence_trace_report` (``scripts/torch_trace_scan.py``, the
   counterpart of ``scripts/trace_scan.py``) splits a whole sequence, the
   one ``python -m bmfr_tpu_torch.bench`` times, by stage.
@@ -43,12 +49,11 @@ import torch
 
 from .config import BMFRConfig
 from .io.fixtures import synthetic_sequence
-from .ops.accumulate import accumulate_filtered_data
+from .ops import _lib
 from .ops.blockify import build_feature_blocks
 from .ops.fitter import fit_blocks
-from .ops.reproject import accumulate_noisy_data, reproject_coords
-from .ops.taa import taa
-from .ops.warp import pack_pairs_bf16
+from .ops.reproject import noisy_tail, reproject_coords
+from .ops.tail import filtered_tail
 from .ops.weighted_sum import weighted_sum
 from .pipeline import denoise
 from .pipeline.denoise import (FrameInputs, PackedState, denoise_frame,
@@ -56,7 +61,7 @@ from .pipeline.denoise import (FrameInputs, PackedState, denoise_frame,
                                zero_state)
 from .pipeline.graph import CompiledStep
 from .profiling import (RUN_RANGE, STAGES, ProfilingInfo, device_events,
-                        print_report, synchronize)
+                        print_report, synchronize, traced_run)
 
 #: the steady frame profiled (frame 0 -> 1 of the scene is a camera
 #: jump: it is not the typical frame)
@@ -141,13 +146,17 @@ def stage_report(cfg, state, inputs, cam, off, reps, device):
         rows.append(ProfilingInfo(f"{name} ({why})"))
 
     def warp():
-        pfx, pfy = reproject_coords(cfg, inputs.positions, cam, off)
-        return pfx, pfy, denoise._warp_planes(cfg, state, inputs, pfx, pfy,
-                                              True, False)[0]
+        prev_pixels = reproject_coords(cfg, inputs.positions, cam, off)
+        return prev_pixels, denoise._warp_planes(
+            cfg, state, inputs, *prev_pixels, True, False)[0]
 
-    pfx, pfy, planes = run("warp_taps", warp)
-    k1 = run("k1_accumulate_noisy", lambda: accumulate_noisy_data(
-        cfg, inputs.noisy, pfx, pfy, planes, f))
+    # kernels G and F pack the next state's words into a scratch copy
+    pack = (torch.empty_like(state.src8) if isinstance(state, PackedState)
+            else None)
+    prev_pixels, planes = run("warp_taps", warp)
+    k1 = run("k1_accumulate_noisy", lambda: noisy_tail(
+        cfg, inputs.noisy, prev_pixels, planes, inputs.positions,
+        inputs.normals, f, pack=pack))
     if direct:
         idle("k2_blockify", "in the fitter kernel on this path")
         filtered = run("k2_fitter", lambda: denoise._filter(
@@ -160,23 +169,12 @@ def stage_report(cfg, state, inputs, cam, off, reps, device):
         filtered = run("k3_weighted_sum", lambda: weighted_sum(
             cfg, w, mm, inputs.normals, inputs.positions, k1["accum"], f,
             feature_blocks=tmp))
-    out, tone = run("k4_accumulate_filtered", lambda: accumulate_filtered_data(
-        cfg, filtered, planes, inputs.albedo, k1["spp"], f))
-    result = run("k5_taa", lambda: taa(cfg, k1["prev_pixels"], tone, planes,
-                                       f))
-    if isinstance(state, PackedState):
-        scratch = torch.empty_like(state.src8)
-
-        def pack():
-            pack_pairs_bf16([*inputs.positions, *inputs.normals],
-                            out=scratch[0:3])
-            pack_pairs_bf16([*k1["accum"], k1["spp"].float()],
-                            out=scratch[3:5])
-            pack_pairs_bf16([*out, *result], out=scratch[5:8])
-
-        run("state_pack", pack)
-    else:
-        idle("state_pack", "no pack: the state is this frame's planes")
+    idle("k4_accumulate_filtered", "in kernel F, k5_taa")
+    run("k5_taa", lambda: filtered_tail(
+        cfg, filtered, planes, inputs.albedo, k1["spp"], k1["prev_pixels"],
+        f, pack=pack))
+    idle("state_pack", "in kernels G and F" if pack is not None
+         else "no pack: the state is this frame's planes")
 
     eager_state = (PackedState(state.src8.clone())
                    if isinstance(state, PackedState) else state)
@@ -209,11 +207,25 @@ def _runtime_call(name):
 
 
 def _stage_of(event):
+    """The stage range ``event`` ran in, if it ran in the traced run's
+    :data:`~bmfr_tpu_torch.profiling.RUN_RANGE` (a warm-up before that
+    range is no work of the run)."""
+    stage_name = None
     while event is not None:
-        if event.name in STAGES:
-            return event.name
+        if event.name in STAGES and stage_name is None:
+            stage_name = event.name
+        if event.name == RUN_RANGE:
+            return stage_name
         event = event.cpu_parent
     return None
+
+
+def _in_run(event):
+    while event is not None:
+        if event.name == RUN_RANGE:
+            return True
+        event = event.cpu_parent
+    return False
 
 
 def _attribute(events, cuda):
@@ -244,7 +256,7 @@ def _attribute(events, cuda):
     work = ([(e.name, e.time_range.elapsed_us())
              for e in device_events(events, within=RUN_RANGE)] if cuda else
             [(e.name, e.self_cpu_time_total) for e in events
-             if e.name not in STAGES + (RUN_RANGE,)])
+             if e.name not in STAGES + (RUN_RANGE,) and _in_run(e)])
     count, us = Counter(), Counter()
     for name, t in work:
         count[name] += 1
@@ -256,9 +268,75 @@ def _attribute(events, cuda):
     return per, sum(t for _, t in work), loose, inside
 
 
+def check_launches(label, events, tally):
+    """Whether a trace's ``events`` (a :func:`~bmfr_tpu_torch.
+    profiling.traced_run`'s) hold, inside its run's range, one device
+    event of the port's kernels (:data:`~bmfr_tpu_torch.ops._lib.
+    KERNELS`) for each launch that ``tally`` (a :func:`~bmfr_tpu_torch.
+    ops._lib.tally_launches` dict of the same frames: eager launches and
+    the replays' captured counts) counted: a trace that lost device
+    events cannot split the frame. Prints the count and where the first
+    and last device events lie from the range's host start and end (a
+    device event cannot start before the range that launched it: a
+    negative lead is the clocks' disagreement)."""
+    work = device_events(events, within=RUN_RANGE)
+    want = sum(tally.values())
+    got = sum(1 for e in work if any(k in e.name for k in _lib.KERNELS))
+    ranges = [e for e in events if e.name == RUN_RANGE
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    edges = ""
+    if work and ranges:
+        lead = (min(e.time_range.start for e in work)
+                - min(r.time_range.start for r in ranges))
+        trail = (max(r.time_range.end for r in ranges)
+                 - max(e.time_range.end for e in work))
+        edges = (f"; first device event {lead:.1f} us after the range's "
+                 f"start, last one {trail:.1f} us before its end")
+    names = Counter(k for e in work for k in _lib.KERNELS if k in e.name)
+    print(f"{label}: {got} device events of the port's kernels for {want} "
+          f"launches counted ({len(device_events(events)) - len(work)} "
+          f"device events outside the range{edges}); events by kernel "
+          f"{dict(names)}, launches by wrapper "
+          f"{ {fn.__name__: n for fn, n in tally.items()} }")
+    return got == want
+
+
+#: traces :func:`checked_trace` takes before it gives up
+TRACE_ATTEMPTS = 3
+
+
+def checked_trace(label, acts, run, device, warm=None):
+    """The events of one :func:`~bmfr_tpu_torch.profiling.traced_run` of
+    ``run()`` (``warm()`` first, in the same trace), this thread's
+    launches tallied. On the card each trace must hold every launch
+    (:func:`check_launches`); one that lost or gained device events is
+    printed and taken again, and after :data:`TRACE_ATTEMPTS` such traces
+    this raises."""
+    synchronize(device)
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        with traced_run(acts, warm=warm) as prof, \
+                _lib.tally_launches() as tally:
+            run()
+        events = prof.events()
+        if device.type != "cuda" or check_launches(
+                f"{label} (trace {attempt})", events, tally):
+            return events
+    raise RuntimeError(f"{label}: {TRACE_ATTEMPTS} traces lost or gained "
+                       "device events of the port's kernels")
+
+
+#: where the stages without a range of their own run on the kernel path
+KERNEL_PATH_NOTE = ("on a card kernel H runs inside warp_taps, G (the K1 "
+                    "tail and words 0:5) inside k1_accumulate_noisy and F "
+                    "(K4 + K5 and words 5:8) inside k5_taa: "
+                    "k4_accumulate_filtered and state_pack hold no work "
+                    "there but the TemporalState carry's copies")
+
+
 def _print_stages(title, per, other, total, scale):
     """The stage rows, ``(unattributed)`` and the total, in ms per
-    frame (``scale``: ms per microsecond and frame), with their shares."""
+    frame (``scale``: ms per microsecond and frame), with their shares,
+    and :data:`KERNEL_PATH_NOTE`."""
     print(title)
     print(f"{'stage':<40}{'ms/frame':>12}{'share':>9}")
     print("-" * 61)
@@ -267,25 +345,29 @@ def _print_stages(title, per, other, total, scale):
                                                            per.get(name))
         share = 100.0 * us / total if total else 0.0
         print(f"{name:<40}{us * scale:>12.4f}{share:>8.1f}%")
+    print(f"({KERNEL_PATH_NOTE})")
 
 
 def trace_report(cfg, state, inputs, cam, off, reps, device):
     """Per-stage device ms per frame from one ``torch.profiler`` pass of
     ``reps`` eager steady frames; returns ``(per_stage, unattributed,
     total)`` in ms per frame. On the CPU, the operators' host time."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity
 
     cuda = device.type == "cuda"
     if isinstance(state, PackedState):
         state = PackedState(state.src8.clone())
-    denoise_frame(cfg, state, inputs, cam, off, FRAME)       # warm
-    synchronize(device)
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    with profile(activities=acts) as prof, record_function(RUN_RANGE):
+
+    def frames():
         for _ in range(reps):
             denoise_frame(cfg, state, inputs, cam, off, FRAME)
         synchronize(device)
-    per, total, loose, _ = _attribute(prof.events(), cuda)
+
+    events = checked_trace(f"trace of {reps} frames", acts, frames, device,
+                           warm=lambda: denoise_frame(cfg, state, inputs,
+                                                      cam, off, FRAME))
+    per, total, loose, _ = _attribute(events, cuda)
     other = total - sum(per.values())
     scale = 1e-3 / reps
     unit = "device" if cuda else "host (CPU run: no device)"
@@ -299,10 +381,16 @@ def trace_report(cfg, state, inputs, cam, off, reps, device):
             total * scale)
 
 
-#: how far the eager pass's stage total may lie from the compiled
-#: sequence's busy time (``scripts/trace_scan.py``: its rows must total
-#: within 5 % of the headline)
+#: how far the eager pass's stage total, with the compiled step's own
+#: copies, may lie from the compiled sequence's busy time
+#: (``scripts/trace_scan.py``: its rows must total within 5 % of the
+#: headline)
 SEQUENCE_TOLERANCE = 0.05
+#: the compiled step's own work, which the eager pass has not: the copies
+#: that fill its static input buffers each frame and write a
+#: ``TemporalState`` carry back (``pipeline/graph.py``), 0.038 ms a
+#: 1280x720 frame, by name in a trace
+STEP_COPY = "Memcpy DtoD (Device -> Device)"
 
 
 def eager_sequence(cfg, inputs, cams, offs):
@@ -335,40 +423,46 @@ def sequence_trace_report(cfg, inputs, cams, offs, device, scope=None):
     replayed). Prints the stage rows, the top 15 kernels outside every
     stage, the kernels whose time the compiled sequence adds to the eager
     one and, with ``scope``, the kernels of the stages (or with names)
-    containing it. On the card, raises unless the eager total lies within
+    containing it. Each pass runs once inside its trace before the traced
+    run, and on the card each trace must hold one device event of the
+    port's kernels per launch counted (:func:`checked_trace`). On the card
+    it raises unless the eager total plus the copies
+    the compiled sequence adds (:data:`STEP_COPY`) lies within
     :data:`SEQUENCE_TOLERANCE` of the compiled busy time. On the CPU the
     rows are the operators' host time and the compiled numbers are None.
 
     Returns ``{"stages", "unattributed", "total", "busy", "idle",
-    "span"}`` in ms per frame (``stages`` by stage name)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    "span"}`` in ms per frame (``stages`` by stage name), and on the card
+    ``"step_copies"``."""
+    from torch.profiler import ProfilerActivity
 
     cuda = device.type == "cuda"
     T = inputs.noisy.shape[0]
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    eager_sequence(cfg, inputs, cams, offs)          # warm
-    synchronize(device)
-    with profile(activities=acts) as prof, record_function(RUN_RANGE):
+
+    def eager():
         eager_sequence(cfg, inputs, cams, offs)
         synchronize(device)
-    events = prof.events()
+
+    def compiled():     # frame 0 eager, then replays (the warm captures)
+        denoise_sequence(cfg, inputs, cams, offs)
+        synchronize(device)
+
+    events = checked_trace(f"eager pass of {T} frames", acts, eager, device,
+                           warm=eager)
     per, total, loose, inside = _attribute(events, cuda)
     counts = [len(device_events(events, within=RUN_RANGE)),
               len(device_events(events))] if cuda else None
-    del prof, events
+    del events
     other = total - sum(per.values())
     scale = 1e-3 / T
     busy = span = None
     if cuda:
-        denoise_sequence(cfg, inputs, cams, offs)   # warm: the capture
-        synchronize(device)
-        with profile(activities=acts) as prof, record_function(RUN_RANGE):
-            denoise_sequence(cfg, inputs, cams, offs)
-            synchronize(device)
-        events = prof.events()
+        events = checked_trace(f"compiled sequence of {T} frames", acts,
+                               compiled, device, warm=compiled)
         work = device_events(events, within=RUN_RANGE)
         counts += [len(work), len(device_events(events))]
-        del prof, events
+        del events
         if not work:
             raise RuntimeError("the profiled sequence recorded no device "
                                "event")
@@ -421,13 +515,17 @@ def sequence_trace_report(cfg, inputs, cams, offs, device, scope=None):
     for name, us in added.most_common(10):
         if us > 0:
             print(f"  {us * scale:9.4f}  {name[:100]}")
-    gap = abs(total - busy) / busy
-    print(f"eager stage total {total * scale:.4f} against compiled busy "
+    copies = max(added.get(STEP_COPY, 0.0), 0.0)
+    rows["step_copies"] = copies * scale
+    gap = abs(total + copies - busy) / busy
+    print(f"eager stage total {total * scale:.4f} + the compiled step's "
+          f"own copies {copies * scale:.4f} against compiled busy "
           f"{busy * scale:.4f} ms/frame: {100 * gap:.2f} % apart (limit "
           f"{100 * SEQUENCE_TOLERANCE:g} %)")
     if gap > SEQUENCE_TOLERANCE:
         raise RuntimeError(
-            f"the eager stage total {total * scale:.4f} ms/frame lies "
+            f"the eager stage total {total * scale:.4f} ms/frame and the "
+            f"compiled step's copies {copies * scale:.4f} lie "
             f"{100 * gap:.2f} % from the compiled sequence's busy "
             f"{busy * scale:.4f} ms/frame (limit "
             f"{100 * SEQUENCE_TOLERANCE:g} %)")

@@ -4,7 +4,7 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the five CUDA kernels from ``bmfr_tpu_torch/csrc/`` with nvcc
+It builds the CUDA kernels from ``bmfr_tpu_torch/csrc/`` with nvcc
 and holds each against its plain PyTorch version at 1280x720 on the
 orbit scene: A (warp + blend), B (Cholesky direct fitter, f32 and f16
 tmp; its device time also on bf16), C (Householder direct fitter, both
@@ -55,6 +55,17 @@ path); ``[oracle]`` holds the default path and the flagship to the
 port's copy of the NumPy oracle at 72x48x4 on orbit, corridor and swing
 (``bmfr_tpu_torch/parity.py``).
 
+``[tail kernels]`` (after kernel E) holds the kernels that stand for
+the stages XLA fuses in the TPU step, H (``reproject_coords``), G
+(``noisy_tail``: the K1 tail and the state's words 0:5) and F
+(``filtered_tail``: K4, K5 and words 5:8), to their plain versions at
+1280x720 on orbit frame 1, the flagship's packed carry and bf16 residual
+and the default path's f32 residual, every value and word equal (NaN
+where NaN), F also on a reprojection that leaves the screen with NaN and
+infinities in it, with each kernel's device ms, bound, wrapper and plain
+ms; every path, stream, staging, scenes, entry, sweep and oracle phase
+holds H, G and F to one launch a frame.
+
 The later slices' phases: ``[basis B]`` and ``[basis C]`` hold kernels B
 and C on feature bases of 4, 7, 10 (first order) and 16 columns (three
 cross terms registered with ``register_feature``, which the kernels read
@@ -93,15 +104,18 @@ seconds per file (median of 5), its bytes and ``read_exr_py``'s seconds.
 once as a subprocess with no ``BENCH_*`` set (the 60-frame 1280x720
 orbit flagship, median of 5 runs: its last line parsed, every key of
 ``bench.py``'s line and the port's three, the device numbers measured,
-the launches of one run A 59 and B 60) while host threads render the
-60-frame swing and orbit scenes; then the bench's ``run_bench`` in this
-process on the swing flagship (A 59, B 60), the reference-exact default
-path (D 60) and the householder flagship (A 59, C 60), each with every
+the launches of one run A 59 and B 60, H, G and F 60 on every cell) while
+host threads render the 60-frame swing and orbit scenes; then the bench's
+``run_bench`` in this process on the swing flagship (A 59, B 60), the
+reference-exact default path (D 60) and the householder flagship (A 59,
+C 60), each with every
 count set to 0 just before it and read just after. ``[bench trace]``
 splits the flagship's 60-frame sequence by stage
 (``profile_stages.sequence_trace_report``: the eager pass's stages, the
 compiled sequence's busy time and span) and fails unless the eager total
-lies within 5 % of the compiled busy time. Each phase prints its
+with the copies the compiled step adds lies within 5 % of the compiled
+busy time and each trace holds one device event of the port's kernels
+per launch counted (as ``[stages *]`` does). Each phase prints its
 seconds.
 
 The last line is the JSON contract ``{"ok": true, "device": {...}}``;
@@ -143,7 +157,10 @@ from bmfr_tpu_torch.ops.fitter_direct import (
 from bmfr_tpu_torch.ops.fitter_pallas import (fit_blocks_pallas,
                                               fit_blocks_pallas_reference)
 from bmfr_tpu_torch.ops.gather import floor_int
-from bmfr_tpu_torch.ops.reproject import reproject_coords
+from bmfr_tpu_torch.ops.reproject import (noisy_tail, noisy_tail_reference,
+                                          reproject_coords,
+                                          reproject_coords_reference)
+from bmfr_tpu_torch.ops.tail import filtered_tail, filtered_tail_reference
 from bmfr_tpu_torch.ops.warp import (gather_taps, pack_pairs_bf16,
                                      pack_x_pairs_bf16, warp_rows,
                                      warp_rows_reference)
@@ -152,7 +169,7 @@ from bmfr_tpu_torch.pipeline.graph import CompiledStep
 from bmfr_tpu_torch.profile_stages import (eager_sequence,
                                            sequence_trace_report,
                                            steady_setup, trace_report)
-from bmfr_tpu_torch.profiling import device_events
+from bmfr_tpu_torch.profiling import RUN_RANGE, device_events, traced_run
 from bmfr_tpu_torch.rng import feature_noise
 
 WIDTH, HEIGHT, FRAMES = 1280, 720, 16
@@ -179,7 +196,9 @@ SCENE_LIMITS = dict(position_limit_squared=0.03, normal_limit_squared=0.5)
 #: the kernel each configuration of the fidelity sweep launches, by its
 #: letter (A warp_blend, B fit_reconstruct_cholesky, C
 #: fit_reconstruct_direct, D fit_blocks_pallas; "cholesky" fits its blocks
-#: with the plain Cholesky solve, as JAX's falls back to XLA)
+#: with the plain Cholesky solve, as JAX's falls back to XLA), beside F
+#: filtered_tail, G noisy_tail and H reproject_coords, which every
+#: configuration launches once a frame
 SWEEP_KERNELS = {
     "default": "D", "cholesky": "", "tmp_f16": "D", "warp_packed": "D",
     "warp_pallas": "AD", "flagship": "AC", "flagship_cholesky": "AB",
@@ -198,6 +217,18 @@ ORACLE_W, ORACLE_H, ORACLE_T = 72, 48, 4
 #: the H100 SXM's data-sheet peaks: HBM bytes
 #: per second and f32 operations per second outside the tensor cores
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+
+
+#: kernels H, G and F, launched once a frame on every path
+TAILS = {"reproject_coords": reproject_coords, "noisy_tail": noisy_tail,
+         "filtered_tail": filtered_tail}
+
+
+def with_tails(counters, expected, frames):
+    """A path's counters and expected launches with kernels H, G and F
+    added, ``frames`` launches each."""
+    return ({**counters, **TAILS},
+            {**expected, **dict.fromkeys(TAILS, frames)})
 
 
 def bound(nbytes, flops):
@@ -248,13 +279,14 @@ def device_breakdown(label, run, frames):
     time by kernel, launches per frame and the device's busy share of
     the span from its first to its last kernel. Returns a dict, or None
     when the profiler recorded no device events."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    torch.cuda.synchronize()
+    with traced_run([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                    warm=run) as prof:
         run()
         torch.cuda.synchronize()
-    kern = device_events(prof.events())
+    kern = device_events(prof.events(), within=RUN_RANGE)
     if not kern:
         print(f"[profile {label}] no device events recorded: not measured")
         return None
@@ -282,32 +314,37 @@ def device_breakdown(label, run, frames):
 
 def kernel_device_ms(fn, kernel, calls=10):
     """Device ms per call of ``fn`` spent in kernels whose name contains
-    ``kernel`` (torch.profiler), or None when no device event was
-    recorded."""
-    from torch.profiler import ProfilerActivity, profile
+    ``kernel`` (torch.profiler: one call in the trace, then ``calls``
+    more, every event of the trace counted: a long process's traces have
+    placed events outside their run's range, ROADMAP Queue 3), or None
+    when no device event was recorded."""
+    from torch.profiler import ProfilerActivity
 
-    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with traced_run([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                    warm=fn) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in device_events(prof.events())
           if kernel in e.name]
-    return sum(us) / calls / 1e3 if us else None
+    if len(us) % (calls + 1):
+        print(f"[trace] {kernel!r}: {len(us)} device events for {calls + 1} "
+              "calls")
+    return sum(us) / (calls + 1) / 1e3 if us else None
 
 
 def kernels_launched(fn):
     """Device kernels one call of ``fn`` launches (torch.profiler), or
     None when no device event was recorded."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with traced_run([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                    warm=fn) as prof:
         fn()
         torch.cuda.synchronize()
-    n = len(device_events(prof.events()))
+    n = len(device_events(prof.events(), within=RUN_RANGE))
     return n or None
 
 
@@ -426,6 +463,111 @@ def check_rows(src, iy, ix, label):
     return 0.0
 
 
+def check_same(name, label, got, want):
+    """A kernel of F, G and H against its plain version: equal as values
+    on every element (``-0 == +0``), NaN where NaN. Returns the largest
+    |difference| of the finite values (0 when equal)."""
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    both_nan = got.isnan() & want.isnan()
+    differ = int((~((got == want) | both_nan)).sum())
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    err = float(torch.where(fin, (got - want).abs(), 0.0).max())
+    print(f"[{name}] {label}: {differ} of {got.numel()} values differ from "
+          f"the plain version's (max |err| {err:.3e}; NaN in both "
+          f"{int(both_nan.sum())})")
+    require(differ == 0, f"{name} {label}: {differ} values differ")
+    return err
+
+
+def tail_phase(flagship, exact, inputs, cams, offs, field):
+    """[tail kernels]: kernels H (reproject_coords), G (noisy_tail) and F
+    (filtered_tail) against their plain versions at 1280x720 on the orbit
+    scene's frame 1, for the flagship (packed carry, bf16 residual) and
+    the default path (no pack, f32 residual), each output and word equal
+    as values; F also on ``field``, a reprojection that leaves the screen
+    at every edge with NaN and infinities in it. Returns ``(errs, ms,
+    dev_ms, bounds)`` by letter: the largest |err|, (wrapper, plain) ms
+    per call, device ms per call (the flagship's, and F's on the default
+    path's f32 residual as "F default") and each kernel's bound."""
+    from bmfr_tpu_torch.pipeline.denoise import _filter, _warp_planes
+
+    t0 = time.perf_counter()
+    errs = dict.fromkeys("FGH", 0.0)
+    ms, dev_ms = {}, {}
+    cur = frame_of(inputs, 1)
+    n_px = HEIGHT * WIDTH
+    for label, cfg in (("flagship", flagship), ("default", exact)):
+        st0, _ = bt.denoise_frame(cfg, bt.zero_state(cfg, inputs.noisy.device),
+                                  frame_of(inputs, 0), cams[0], offs[0], 0)
+        args_h = (cfg, cur.positions, cams[0], offs[1])
+        pp = reproject_coords(*args_h)
+        for history in ("always", "never"):
+            errs["H"] = max(errs["H"], check_same(
+                "reproject_coords", f"{label} history={history}",
+                reproject_coords(*args_h, history),
+                reproject_coords_reference(*args_h, history)))
+        planes = _warp_planes(cfg, st0, cur, pp[0], pp[1], True, False)[0]
+        src8 = getattr(st0, "src8", None)
+        packs = ([src8.clone(), src8.clone()] if src8 is not None
+                 else [None, None])
+        args_g = (cfg, cur.noisy, pp, planes, cur.positions, cur.normals, 1)
+        k1 = noisy_tail(*args_g, pack=packs[0])
+        k1_ref = noisy_tail_reference(*args_g, pack=packs[1])
+        for k in ("accum", "spp", "accept"):
+            errs["G"] = max(errs["G"], check_same(
+                "noisy_tail", f"{label} {k}", k1[k], k1_ref[k]))
+        filtered = _filter(cfg, cur, k1["accum"], 1, False)[0]
+        for field_label, prev_pixels in (("orbit", pp), ("field", field)):
+            args_f = (cfg, filtered, planes, cur.albedo, k1["spp"],
+                      prev_pixels, 1)
+            got = filtered_tail(*args_f, pack=packs[0])
+            want = filtered_tail_reference(*args_f, pack=packs[1])
+            for k, g, w in zip(("out", "tone", "result"), got, want):
+                errs["F"] = max(errs["F"], check_same(
+                    "filtered_tail", f"{label} {field_label} {k} "
+                    f"({cfg.residual_dtype} residual)", g, w))
+        if src8 is not None:
+            diff = int((packs[0] != packs[1]).sum())
+            print(f"[tail kernels] {label}: the state words G and F wrote "
+                  f"differ from the plain versions' in {diff} of "
+                  f"{packs[0].numel()}")
+            require(diff == 0, f"tail kernels {label}: {diff} words differ")
+        scratch = packs[0]
+        run_h = (lambda: reproject_coords(*args_h),
+                 lambda: reproject_coords_reference(*args_h))
+        run_g = (lambda: noisy_tail(*args_g, pack=scratch),
+                 lambda: noisy_tail_reference(*args_g, pack=scratch))
+        args_f = (cfg, filtered, planes, cur.albedo, k1["spp"], pp, 1)
+        run_f = (lambda: filtered_tail(*args_f, pack=scratch),
+                 lambda: filtered_tail_reference(*args_f, pack=scratch))
+        if label == "default":
+            dev_ms["F default"] = kernel_device_ms(run_f[0],
+                                                   "filtered_tail_kernel")
+            continue
+        for key, (kernel, plain), name in (
+                ("H", run_h, "reproject_kernel"),
+                ("G", run_g, "noisy_tail_kernel"),
+                ("F", run_f, "filtered_tail_kernel")):
+            ms[key] = (cuda_ms(kernel, 50), cuda_ms(plain, 10))
+            dev_ms[key] = kernel_device_ms(kernel, name)
+        # each input read once, each output written once; f32 operations
+        # per pixel: H ~30 (three dot products, two divisions); G ~30;
+        # F ~220 (K4 with three powf, the 3x3 and cross min/max, the clamp
+        # and blend)
+        bounds = {
+            "H": bound(nbytes(cur.positions, cams[0], offs[1], pp),
+                       30 * n_px),
+            "G": bound(nbytes(planes[0:6], cur.noisy, cur.positions,
+                              cur.normals, k1["accum"], k1["spp"],
+                              k1["accept"]) + 5 * 4 * n_px, 30 * n_px),
+            "F": bound(nbytes(filtered, planes[4], planes[6:13], cur.albedo,
+                              k1["spp"], pp) + (9 + 3) * 4 * n_px,
+                       220 * n_px)}
+    print(f"[tail kernels] the phase took {time.perf_counter() - t0:.1f} s")
+    return errs, ms, dev_ms, bounds
+
+
 def steady_frames(cfg, inputs, cams, offs, mode):
     """Run frame 0 eagerly; return a closure running frames 1..15 on that
     state between two CUDA events, the events and the compiled step.
@@ -480,7 +622,9 @@ def run_path(label, cfg, sc, inputs, cams, offs, counters, expected):
     set to 0 just before and read just after; hold the counts to
     ``expected``, the compiled frames to the eager step bit for bit and
     the output to the plain path and the clean render; time the steady
-    frames eager and compiled. Returns the path's record."""
+    frames eager and compiled; kernels H, G and F are held to one launch
+    a frame beside ``expected``. Returns the path's record."""
+    counters, expected = with_tails(counters, expected, FRAMES)
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -629,6 +773,7 @@ def _stream_phase(root, sc, inputs, cams, offs, flagship, exact, dev,
             ("default", exact,
              {"fit_blocks_pallas": fit_blocks_pallas, "warp_rows": warp_rows},
              {"fit_blocks_pallas": FRAMES, "warp_rows": 0})):
+        counters, expected = with_tails(counters, expected, FRAMES)
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
@@ -833,6 +978,7 @@ def _staging_phase(root, sc, flagship, exact, dev, zip_timing):
             ("default", exact,
              {"fit_blocks_pallas": fit_blocks_pallas, "warp_rows": warp_rows},
              {"fit_blocks_pallas": FRAMES, "warp_rows": 0})):
+        counters, want = with_tails(counters, want, FRAMES)
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
@@ -946,7 +1092,8 @@ def sweep_counters():
     reach, by letter."""
     return {"A": warp_blend, "B": fit_reconstruct_cholesky,
             "C": fit_reconstruct_direct, "D": fit_blocks_pallas,
-            "E": warp_rows}
+            "E": warp_rows, "F": filtered_tail, "G": noisy_tail,
+            "H": reproject_coords}
 
 
 def counted_sweep(label, scenes, base, dev):
@@ -965,7 +1112,7 @@ def counted_sweep(label, scenes, base, dev):
     for sc in scenes.values():
         T = sc["noisy"].shape[0]
         for kernels in SWEEP_KERNELS.values():
-            for k in kernels:
+            for k in kernels + "FGH":
                 expected[k] += T - 1 if k == "A" else T
     print(f"[{label}] run_sweep {len(rows)} rows on the card: {sweep_s:.1f} s"
           f"; launches {launches}")
@@ -1073,9 +1220,11 @@ def oracle_phase(dev):
                                            round_state=parity.bf16_round)
         oracle_s = time.perf_counter() - t0
         for label, pcfg, expected in (
-                ("default", cfg, dict(D=ORACLE_T)),
+                ("default", cfg, dict(D=ORACLE_T, F=ORACLE_T, G=ORACLE_T,
+                                      H=ORACLE_T)),
                 ("flagship", cfg.replace(**bt.FLAGSHIP),
-                 dict(A=ORACLE_T - 1, B=ORACLE_T))):
+                 dict(A=ORACLE_T - 1, B=ORACLE_T, F=ORACLE_T, G=ORACLE_T,
+                      H=ORACLE_T))):
             for fn in counters.values():
                 fn.launches = 0
             port = parity.port_frames(pcfg, sc, dev)
@@ -1482,6 +1631,7 @@ def scenes_phase(sc, flagship, exact, dev):
         refs = torch.stack([bt.denoise_sequence(
             cfg, bt.FrameInputs(*(x[s] for x in inputs)), cams[s], offs[s])
             for s in range(len(scenes))])
+        counters, per_frame = with_tails(counters, per_frame, FRAMES)
         for S, places in [(S, 1) for S in SCENE_COUNTS] + [(4, 2)]:
             mesh = bt.make_scene_mesh([dev] * places)
             batch = (bt.FrameInputs(*(x[:S] for x in inputs)), cams[:S],
@@ -1532,7 +1682,8 @@ def entry_phase():
     fn, args = graft_entry.entry()
     cfg = graft_entry.entry_config()
     eager = bt.denoise_frame(cfg, *args, history="always")[1]["result"]
-    for k in (warp_blend, fit_reconstruct_direct):
+    counted = (warp_blend, fit_reconstruct_direct, *TAILS.values())
+    for k in counted:
         k.launches = 0
     t0 = time.perf_counter()
     _, first = fn(*args)
@@ -1540,16 +1691,17 @@ def entry_phase():
     capture_s = time.perf_counter() - t0
     _, again = fn(*args)
     torch.cuda.synchronize()
-    launches = (warp_blend.launches, fit_reconstruct_direct.launches)
+    launches = tuple(k.launches for k in counted)
     same = bool(torch.equal(first, eager)) and bool(torch.equal(again, eager))
     ms = cuda_ms(lambda: fn(*args), 20)
     print(f"[entry] {gpu_line()}: fn at {cfg.image_width}x"
           f"{cfg.image_height} ({cfg.warp_mode} warp, {cfg.fitter_impl} "
           f"{cfg.solver}): eager, captured ({capture_s:.2f} s with the "
-          f"capture) and replayed equal: {same}; launches A, C {launches}; "
+          f"capture) and replayed equal: {same}; launches A, C, H, G, F "
+          f"{launches}; "
           f"{ms:.4f} ms a replayed call")
     require(same, "entry: the captured step differs from the eager one")
-    require(launches == (2, 2), f"entry: launches {launches}")
+    require(launches == (2,) * 5, f"entry: launches {launches}")
     require(tuple(first.shape) == (3, 720, 1280)
             and bool(torch.isfinite(first).all()), "entry: result")
     return dict(bit_equal=same, launches=launches, capture_s=capture_s,
@@ -1677,8 +1829,9 @@ def bench_phase(flagship, exact, hh_flagship, dev):
 
 def bench_trace_phase(flagship, inputs, cams, offs, dev):
     """[bench trace]: the flagship's 60-frame bench sequence split by
-    stage (``sequence_trace_report``), its eager stage total within 5 %
-    of the compiled sequence's busy time."""
+    stage (``sequence_trace_report``), its eager stage total with the
+    compiled step's copies within 5 % of the compiled sequence's busy
+    time, and every launch of the port's kernels in each trace."""
     t0 = time.perf_counter()
     print(f"[bench trace] {gpu_line()}")
     try:
@@ -1873,6 +2026,15 @@ def main():
     row0, row1 = warp_rows(src, iy, ix)
     bounds["E"] = bound(nbytes(src, iy, ix, row0, row1), 0)
     del row0, row1
+
+    # ---- kernels F, G and H vs plain ----
+    field = torch.stack([sx2, sy2]).contiguous()
+    t_errs, t_ms, t_dev, t_bounds = tail_phase(flagship, exact, inputs, cams,
+                                               offs, field)
+    errs.update(t_errs)
+    ms.update(t_ms)
+    dev_ms.update(t_dev)
+    bounds.update(t_bounds)
     print(f"[library] torch.linalg.lstsq on kernel D's f32 system "
           f"(block_edge 32, frame 5): {library_ms:.4f} ms per call, "
           f"weights' relative norm from kernel D {lib_rel:.3e}")
@@ -2007,14 +2169,17 @@ def main():
              "packed state",
         "B": "none: no single call computes the Gram sums, the Cholesky "
              "solve and the reconstruction",
-        "E": "none: no single call computes the two clipped row loads"}
+        "E": "none: no single call computes the two clipped row loads",
+        **dict.fromkeys("FGH", "none: no single call computes the fused "
+                               "stage")}
 
     def entry(key, name, source, replaces, launches, bench_run):
         b_ms, by = bounds[key]
         lib = library_ms if key in ("C", "D") else None
         wrapper = {"A": "warp_blend", "B": "fit_reconstruct_cholesky",
                    "C": "fit_reconstruct_direct", "D": "fit_blocks_pallas",
-                   "E": "warp_rows"}[key]
+                   "E": "warp_rows", "F": "filtered_tail", "G": "noisy_tail",
+                   "H": "reproject_coords"}[key]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=launches,
                     bench_launches=bench_runs[bench_run]["launches"][wrapper],
@@ -2060,6 +2225,20 @@ def main():
               paths["default"]["launches"]["fit_blocks_pallas"], "default"),
         entry("E", "warp_rows", "bmfr_tpu_torch/csrc/warp_rows.cu",
               "bmfr_tpu/ops/warp_pallas.py:276", e_launches, "default"),
+        entry("F", "filtered_tail", "bmfr_tpu_torch/csrc/filtered_tail.cu",
+              "bmfr_tpu/ops/accumulate.py:16 + bmfr_tpu/ops/taa.py:29 + "
+              "bmfr_tpu/pipeline/denoise.py:272 (w_out), fused by XLA",
+              paths["flagship"]["launches"]["filtered_tail"],
+              "flagship orbit (command)"),
+        entry("G", "noisy_tail", "bmfr_tpu_torch/csrc/noisy_tail.cu",
+              "bmfr_tpu/ops/reproject.py:40 + bmfr_tpu/pipeline/denoise.py:"
+              "267 (w_geo, w_acc), fused by XLA",
+              paths["flagship"]["launches"]["noisy_tail"],
+              "flagship orbit (command)"),
+        entry("H", "reproject_coords", "bmfr_tpu_torch/csrc/reproject.cu",
+              "bmfr_tpu/ops/reproject.py:22, fused by XLA",
+              paths["flagship"]["launches"]["reproject_coords"],
+              "flagship orbit (command)"),
         basis_entry("B first_order float32",
                     "fit_reconstruct_cholesky (any basis)",
                     "bmfr_tpu_torch/csrc/fitter_chol_basis.cu",

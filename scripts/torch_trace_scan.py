@@ -9,9 +9,11 @@ stage, ``(unattributed)``, the eager total and the compiled sequence's
 busy time, idle time and span; then the top 15 kernels outside every
 stage, the kernels the compiled sequence adds, and, with
 ``TRACE_SCOPE``, the kernels of the stages (or with names) containing
-it. It fails unless the eager stage total lies within 5 % of the
-compiled sequence's busy time (``trace_scan.py``'s rule: its rows total
-within 5 % of the headline).
+it. It fails unless the eager stage total, with the copies the
+compiled step adds (its static inputs filled each frame), lies within 5 %
+of the compiled sequence's busy time (``trace_scan.py``'s rule: its rows
+total within 5 % of the headline), and unless each trace holds one
+device event of the port's kernels per launch counted.
 
 The configuration takes ``trace_scan.py``'s environment names and
 defaults (the flagship): ``WARP_MODE`` (pallas), ``FITTER``

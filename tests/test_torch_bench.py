@@ -173,16 +173,19 @@ def test_output_equals_denoise_sequence():
 
 def test_expected_launches():
     flagship = bt.BMFRConfig(**bt.FLAGSHIP)
-    zero = dict.fromkeys(bench.COUNTERS, 0)
+    # the reprojection (H), the K1 tail (G) and K4 + K5 (F) on every path
+    every_path = {**dict.fromkeys(bench.COUNTERS, 0),
+                  "reproject_coords": 60, "noisy_tail": 60,
+                  "filtered_tail": 60}
     assert bench.expected_launches(flagship, 60) == {
-        **zero, "warp_blend": 59, "fit_reconstruct_cholesky": 60}
+        **every_path, "warp_blend": 59, "fit_reconstruct_cholesky": 60}
     assert bench.expected_launches(
         flagship.replace(solver="householder"), 60) == {
-        **zero, "warp_blend": 59, "fit_reconstruct_direct": 60}
+        **every_path, "warp_blend": 59, "fit_reconstruct_direct": 60}
     assert bench.expected_launches(bt.BMFRConfig(), 60) == {
-        **zero, "fit_blocks_pallas": 60}
+        **every_path, "fit_blocks_pallas": 60}
     assert bench.expected_launches(bt.BMFRConfig(fitter_impl="xla"),
-                                   60) == zero
+                                   60) == every_path
 
 
 def test_no_card_exits_nonzero(clean_env, capsys):

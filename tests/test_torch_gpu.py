@@ -26,7 +26,8 @@ from bmfr_tpu_torch.ops.fitter_direct import (
 from bmfr_tpu_torch.ops.fitter_pallas import (fit_blocks_pallas,
                                               fit_blocks_pallas_reference)
 from bmfr_tpu_torch.ops.gather import floor_int, gather_planes
-from bmfr_tpu_torch.ops.reproject import reproject_coords
+from bmfr_tpu_torch.ops.reproject import noisy_tail, reproject_coords
+from bmfr_tpu_torch.ops.tail import filtered_tail
 from bmfr_tpu_torch.ops.warp import (add_wrap, pack_pairs_bf16,
                                      pack_x_pairs_bf16, warp_rows)
 from bmfr_tpu_torch.ops.warp_blend import warp_blend, warp_blend_reference
@@ -968,7 +969,7 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "spread_ms",
 
 def test_bench_on_card(cuda):
     """The bench's path at 1280x720x8: every run's launches held to A 7
-    and B 8 and its checksum to the first run's (inside ``run_bench``),
+    and B 8, H, G and F 8 each, and its checksum to the first run's (inside ``run_bench``),
     the output finite and equal to ``denoise_sequence``'s, the record's
     keys, and the device numbers measured."""
     import io
@@ -980,7 +981,9 @@ def test_bench_on_card(cuda):
     record, out, launches = bench.run_bench(cfg, inputs, cams, offs, reps=2,
                                             log=io.StringIO())
     assert launches == {**dict.fromkeys(bench.COUNTERS, 0),
-                        "warp_blend": 7, "fit_reconstruct_cholesky": 8}
+                        "warp_blend": 7, "fit_reconstruct_cholesky": 8,
+                        "reproject_coords": 8, "noisy_tail": 8,
+                        "filtered_tail": 8}
     assert {k: fn.launches for k, fn in bench.COUNTERS.items()} == launches
     assert bool(torch.isfinite(out).all())
     assert torch.equal(out, bt.denoise_sequence(cfg, inputs, cams, offs))
@@ -993,3 +996,224 @@ def test_bench_on_card(cuda):
     assert record["busy_ms_per_frame"] <= record["device_span_ms_per_frame"]
     assert record["warp_kernel_served_pct"] == 100.0
     assert record["warp_fallback_frames"] == 0
+
+
+# ---- kernels F, G and H (the stages XLA fuses in the TPU step) ----
+
+#: odd sizes, a row, a column and sizes under the 32x8 tile of kernel F
+TAIL_SHAPES = [(37, 53), (1, 77), (45, 1), (2, 3), (120, 200)]
+
+
+def same_values(a, b):
+    """Equal as values (``-0 == +0``), NaN where NaN: the plain version's
+    NaNs and the kernel's are the card's canonical NaN, but a zero's sign
+    may come from max's choice between equal operands."""
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def tail_planes(H, W, dev, seed):
+    """13 blend planes as kernel A writes them: zero total weight on some
+    pixels, accept bits 0..15, spp sums that saturate the u8 spp."""
+    rng = np.random.default_rng(seed)
+    tw = rng.random((H, W)).astype(np.float32)
+    tw[rng.random((H, W)) < 0.2] = 0.0
+    k5w = rng.random((H, W)).astype(np.float32)
+    k5w[rng.random((H, W)) < 0.1] = 0.0
+    spp = rng.integers(1, 300, (H, W)).astype(np.float32)
+    planes = np.concatenate([
+        tw * rng.random((3, H, W)), (tw * spp)[None], tw[None],
+        rng.integers(0, 16, (1, H, W)), tw * rng.random((3, H, W)),
+        k5w * rng.standard_normal((3, H, W)), k5w[None]], axis=0)
+    return torch.from_numpy(planes.astype(np.float32)).to(dev)
+
+
+def with_extremes(t, seed):
+    """``t`` with NaN, +-inf and huge values sprinkled over ~3 % of it."""
+    rng = np.random.default_rng(seed)
+    flat = t.clone().reshape(-1)
+    idx = rng.choice(flat.numel(), max(1, flat.numel() // 30), replace=False)
+    vals = np.array([np.nan, np.inf, -np.inf, 1e30, -1e30, 2.0**31],
+                    np.float32)
+    flat[torch.from_numpy(idx).to(t.device)] = torch.from_numpy(
+        vals[rng.integers(0, len(vals), idx.size)]).to(t.device)
+    return flat.reshape(t.shape)
+
+
+@pytest.mark.parametrize("H,W", TAIL_SHAPES)
+@pytest.mark.parametrize("history", ["always", "never"])
+def test_reproject_kernel_is_bit_equal(cuda, H, W, history):
+    """Kernel H against its plain version on the card: bit for bit (kernel
+    A's accept bits compare pfx/pfy against limits), also where a
+    position is NaN or infinite."""
+    from bmfr_tpu_torch.ops.reproject import reproject_coords_reference
+
+    cfg = scene_cfg(H, W)
+    rng = np.random.default_rng(H * W)
+    pos = with_extremes(torch.from_numpy(
+        rng.standard_normal((3, H, W)).astype(np.float32)).to(cuda), 1)
+    cam = torch.from_numpy(rng.standard_normal((4, 4)).astype(
+        np.float32)).to(cuda)
+    off = torch.tensor([0.3, 0.7], device=cuda)
+    n0 = reproject_coords.launches
+    got = reproject_coords(cfg, pos, cam, off, history)
+    assert reproject_coords.launches == n0 + 1
+    want = reproject_coords_reference(cfg, pos, cam, off, history)
+    torch.cuda.synchronize()
+    assert got.shape == (2, H, W)
+    assert same_values(got, want)
+
+
+@pytest.mark.parametrize("H,W", TAIL_SHAPES)
+@pytest.mark.parametrize("frame", [0, 3])
+@pytest.mark.parametrize("carry", ["packed", "temporal"])
+def test_noisy_tail_kernel_is_bit_equal(cuda, H, W, frame, carry):
+    """Kernel G against its plain version: accum, spp (saturating at
+    255) and accept bit for bit, and with a packed carry words 0:5 equal
+    and words 5:8 untouched; NaN and infinities in the noisy colour."""
+    from bmfr_tpu_torch.ops.reproject import noisy_tail_reference
+
+    cfg = scene_cfg(H, W)
+    rng = np.random.default_rng(H + W + frame)
+    planes = tail_planes(H, W, cuda, frame)
+    cur = torch.from_numpy(rng.standard_normal((9, H, W)).astype(
+        np.float32)).to(cuda)
+    noisy = with_extremes(cur[6:9].abs(), 2)
+    pp = torch.zeros((2, H, W), device=cuda)
+    packs = [None, None]
+    if carry == "packed":
+        base = torch.from_numpy(rng.integers(
+            -2**31, 2**31 - 1, (8, H, W), dtype=np.int64).astype(
+                np.int32)).to(cuda)
+        packs = [base.clone(), base.clone()]
+    n0 = noisy_tail.launches
+    got = noisy_tail(cfg, noisy, pp, planes, cur[0:3], cur[3:6], frame,
+                        pack=packs[0])
+    assert noisy_tail.launches == n0 + 1
+    want = noisy_tail_reference(cfg, noisy, pp, planes, cur[0:3], cur[3:6],
+                                frame, pack=packs[1])
+    torch.cuda.synchronize()
+    assert same_values(got["accum"], want["accum"])
+    assert torch.equal(got["spp"], want["spp"])
+    assert torch.equal(got["accept"], want["accept"])
+    if frame and H * W > 100:
+        assert bool((got["spp"] == 255).any())
+    if carry == "packed":
+        assert torch.equal(packs[0], packs[1])
+        assert torch.equal(packs[0][5:8], base[5:8])
+
+
+@pytest.mark.parametrize("H,W", TAIL_SHAPES)
+@pytest.mark.parametrize("residual", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["frame 0", "frame 3", "skip_taa",
+                                  "skip_second_accum"])
+@pytest.mark.parametrize("carry", ["packed", "temporal"])
+def test_filtered_tail_kernel_is_bit_equal(cuda, H, W, residual, case,
+                                           carry):
+    """Kernel F against its plain version: out, tone and result equal as
+    values (NaN where NaN), words 5:8 bit for bit and words 0:5
+    untouched; NaN and infinities in the filtered colour and in
+    prev_pixels (XLA's floor: NaN -> 0, saturating) and at the borders
+    of every shape, down to a single row or column."""
+    from bmfr_tpu_torch.ops.tail import filtered_tail_reference
+
+    skips = {"skip_taa": dict(skip_taa=True),
+             "skip_second_accum": dict(skip_second_accum=True)}.get(case, {})
+    cfg = scene_cfg(H, W).replace(residual_dtype=residual, **skips)
+    frame = 0 if case == "frame 0" else 3
+    rng = np.random.default_rng(H * W + frame)
+    planes = tail_planes(H, W, cuda, frame + 1)
+    filtered = with_extremes(torch.from_numpy(
+        rng.random((3, H, W)).astype(np.float32) * 2).to(cuda), 3)
+    albedo = torch.from_numpy(rng.random((3, H, W)).astype(
+        np.float32)).to(cuda)
+    spp = torch.from_numpy(rng.integers(1, 256, (H, W)).astype(
+        np.uint8)).to(cuda)
+    yy = torch.arange(H, device=cuda, dtype=torch.float32)[:, None]
+    xx = torch.arange(W, device=cuda, dtype=torch.float32)[None, :]
+    # a field that leaves the screen on every side, with extremes
+    pp = with_extremes(torch.stack([
+        (xx * 1.1 - 2.5 + 0.1 * yy).expand(H, W),
+        (yy * 1.2 - 2.5 - 0.05 * xx).expand(H, W)]).contiguous(), 4)
+    packs = [None, None]
+    if carry == "packed":
+        base = torch.from_numpy(rng.integers(
+            -2**31, 2**31 - 1, (8, H, W), dtype=np.int64).astype(
+                np.int32)).to(cuda)
+        packs = [base.clone(), base.clone()]
+    n0 = filtered_tail.launches
+    got = filtered_tail(cfg, filtered, planes, albedo, spp, pp, frame,
+                           pack=packs[0])
+    assert filtered_tail.launches == n0 + 1
+    want = filtered_tail_reference(cfg, filtered, planes, albedo, spp, pp,
+                                   frame, pack=packs[1])
+    torch.cuda.synchronize()
+    for name, g, w in zip(("out", "tone", "result"), got, want):
+        assert same_values(g, w), name
+    if carry == "packed":
+        assert torch.equal(packs[0], packs[1])
+        assert torch.equal(packs[0][0:5], base[0:5])
+
+
+@pytest.mark.parametrize("path", ["default", "flagship",
+                                  "householder_flagship", "first_order"])
+def test_tail_kernels_launch_once_a_frame(cuda, path):
+    """denoise_sequence launches H, G and F once a frame on every path,
+    frame 0 included, and plain=True launches none of them; the two
+    carries of the fused warp give the same frames."""
+    H, W, T = 37, 53, 4
+    cfg = (path_cfg("flagship", H, W).replace(features_scaled=(
+        "world_position_x", "world_position_y", "world_position_z"))
+        if path == "first_order" else path_cfg(path, H, W))
+    inputs, cams, offs = scene(H, W, cuda, frames=T)
+    tails = (reproject_coords, noisy_tail, filtered_tail)
+    for fn in tails:
+        fn.launches = 0
+    out = bt.denoise_sequence(cfg, inputs, cams, offs)
+    assert [fn.launches for fn in tails] == [T, T, T]
+    plain = bt.denoise_sequence(cfg, inputs, cams, offs, plain=True)
+    assert [fn.launches for fn in tails] == [T, T, T]
+    assert bool(torch.isfinite(out).all())
+    for t in range(T):
+        assert psnr(out[t].cpu().numpy(), plain[t].cpu().numpy()) >= 70.0
+    if cfg.warp_mode == "pallas":
+        temporal, _ = eager_run(cfg, inputs, cams, offs,
+                                bt.TemporalState.initial(cfg, cuda))
+        assert torch.equal(temporal, out)
+
+
+def test_two_threads_replay_on_one_default_stream(cuda):
+    """Two host threads replay their own captured steps on one card's
+    default stream, round after round: each thread's frames must equal a
+    single thread's (the fault once seen in a run of these tests; the
+    scene-parallel runner keeps one thread per card regardless)."""
+    import threading
+
+    H, W, T, ROUNDS = 64, 96, 5, 8
+    cfg = path_cfg("flagship", H, W)
+    inputs, cams, offs = scene(H, W, cuda, frames=T)
+    want, _ = eager_run(cfg, inputs, cams, offs, bt.zero_state(cfg, cuda))
+    results, errors = {}, []
+
+    def worker(k):
+        try:
+            step = bt.make_denoise_frame(cfg)
+            for r in range(ROUNDS):
+                state, got = bt.zero_state(cfg, cuda), []
+                for t in range(T):
+                    state, res = step(state,
+                                      bt.FrameInputs(*(x[t] for x in inputs)),
+                                      cams[max(t - 1, 0)], offs[t], t)
+                    got.append(res.clone())
+                results[k, r] = torch.stack(got)
+            torch.cuda.synchronize()
+        except Exception as e:      # reported below, on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errors, errors
+    bad = [key for key, got in results.items() if not torch.equal(got, want)]
+    assert not bad, f"rounds that differ from one thread's: {bad}"
