@@ -80,9 +80,14 @@ _SIGNATURES = {
     "bmfr_noisy_tail": (_P,) * 8 + (_I, _I, _F, _I, _P),
     # filtered, planes, albedo, spp, prev_pixels, out, tone, result, pack
     # (or null), H, W, second_alpha, taa_alpha, taa_keep, residual_bf16,
-    # accum_prev, taa, stream
+    # accum_prev, variant (0 K4 only, 1 thread loads, 2 TMA), stream
     "bmfr_filtered_tail": (_P,) * 9 + (_I, _I, _F, _F, _F, _I, _I, _I, _P),
 }
+
+#: an entry point's return codes below 0: a TMA tensor map could not be
+#: encoded (``csrc/filtered_tail.cu``); -1 libcuda lacks the encoder,
+#: ENCODE_FAILED - r the encoder returned CUresult r
+ENCODE_FAILED = -1000
 
 _lib = None
 
@@ -171,6 +176,12 @@ def launch(name, *args):
     stream = torch.cuda.current_stream().cuda_stream
     with launch_range(name):
         err = getattr(library(), name)(*args, stream)
+    if err <= ENCODE_FAILED:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed (CUresult "
+                           f"{ENCODE_FAILED - err})")
+    if err < 0:
+        raise RuntimeError(f"{name}: libcuda has no "
+                           "cuTensorMapEncodeTiled")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 

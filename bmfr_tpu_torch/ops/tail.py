@@ -5,9 +5,11 @@ On the TPU, XLA fuses the pre-blended K4 (:func:`bmfr_tpu.ops.accumulate.
 accumulate_filtered_data`), K5 (:func:`bmfr_tpu.ops.taa.taa`) and the
 next state's out/result words (``w_out``, ``bmfr_tpu/pipeline/
 denoise.py:272-277``) into the jitted step. On the card kernel F
-(``csrc/filtered_tail.cu``) computes them in one pass: K4 per pixel, the
-tone's YCoCg neighbourhood from shared memory (a one-pixel halo whose K4
-each tile recomputes), K5's clamp, blend and early-out, and the words.
+(``csrc/filtered_tail.cu``) computes them in one pass: persistent CTAs
+walk 32x16 tiles, each tile's inputs landing in a shared-memory ring
+(by TMA where :func:`filtered_tail_loader` allows it), K4 per pixel and
+on the one-pixel halo, the tone's YCoCg neighbourhood from shared memory
+and warp shuffles, K5's clamp, blend and early-out, and the words.
 """
 
 from __future__ import annotations
@@ -21,6 +23,28 @@ from .frame import has_history
 from .taa import taa
 from .warp import pack_pairs_bf16
 from ..profiling import stage
+
+
+#: the bytes TMA wants of a tensor's address and of its row stride
+TMA_ALIGN = 16
+#: the C entry's variant of each loader (0 is K4 alone, without TAA)
+VARIANTS = {"threads": 1, "tma": 2}
+
+
+def filtered_tail_loader(W, addresses):
+    """How kernel F fills its ring at width ``W``: ``"tma"`` (one thread
+    issues a tile's TMA box copies a tile ahead) where the row stride of
+    a plane (``4 W`` bytes) and the address of every tensor TMA reads
+    (``addresses``: the byte addresses of filtered, planes, albedo and
+    prev_pixels, f32 ``[C, H, W]`` each) are multiples of
+    :data:`TMA_ALIGN`, so that every plane of them is too; else
+    ``"threads"`` (every thread's own 4 B loads, the same kernel body).
+    The persistent grid (the card's SMs times the CTAs that fit on one,
+    never more than the 32x16 tiles) is the C entry's, which asks the
+    card."""
+    aligned = (4 * W) % TMA_ALIGN == 0 and all(
+        a % TMA_ALIGN == 0 for a in addresses)
+    return "tma" if aligned else "threads"
 
 
 def filtered_tail_reference(cfg, filtered, planes, albedo, spp, prev_pixels,
@@ -55,8 +79,10 @@ def filtered_tail(cfg, filtered, planes, albedo, spp, prev_pixels, frame,
     (:func:`~bmfr_tpu_torch.ops.frame.has_history`).
 
     On a CUDA tensor this launches kernel F, which equals
-    :func:`filtered_tail_reference`; on a CPU tensor it runs that plain
-    version. Any other device raises."""
+    :func:`filtered_tail_reference` (with TAA its ring filled as
+    :func:`filtered_tail_loader` picks); on a CPU tensor it runs that
+    plain version. Any other device raises, and so does a tensor map that
+    cannot be encoded."""
     dev = filtered.device
     if dev.type == "cpu":
         return filtered_tail_reference(cfg, filtered, planes, albedo, spp,
@@ -77,6 +103,11 @@ def filtered_tail(cfg, filtered, planes, albedo, spp, prev_pixels, frame,
     out = torch.empty((3, H, W), dtype=torch.float32, device=dev)
     tone = torch.empty_like(out)
     result = torch.empty_like(out) if run_taa else tone
+    variant = 0
+    if run_taa:
+        variant = VARIANTS[filtered_tail_loader(
+            W, [t.data_ptr() for t in (filtered, planes, albedo,
+                                       prev_pixels)])]
     alpha = np.float32(cfg.taa_blend_alpha)
     _lib.launch("bmfr_filtered_tail", filtered.data_ptr(), planes.data_ptr(),
                 albedo.data_ptr(), spp.data_ptr(), prev_pixels.data_ptr(),
@@ -85,7 +116,7 @@ def filtered_tail(cfg, filtered, planes, albedo, spp, prev_pixels, frame,
                 float(np.float32(cfg.second_blend_alpha)), float(alpha),
                 float(np.float32(1.0) - alpha),
                 int(cfg.residual_dtype == "bfloat16"),
-                int(hist and not cfg.skip_second_accum), int(run_taa))
+                int(hist and not cfg.skip_second_accum), variant)
     _lib.count_launch(filtered_tail)
     return out, tone, result
 

@@ -160,7 +160,8 @@ from bmfr_tpu_torch.ops.gather import floor_int
 from bmfr_tpu_torch.ops.reproject import (noisy_tail, noisy_tail_reference,
                                           reproject_coords,
                                           reproject_coords_reference)
-from bmfr_tpu_torch.ops.tail import filtered_tail, filtered_tail_reference
+from bmfr_tpu_torch.ops.tail import (filtered_tail, filtered_tail_loader,
+                                     filtered_tail_reference)
 from bmfr_tpu_torch.ops.warp import (gather_taps, pack_pairs_bf16,
                                      pack_x_pairs_bf16, warp_rows,
                                      warp_rows_reference)
@@ -334,9 +335,9 @@ def kernel_device_ms(fn, kernel, calls=10):
     return sum(us) / (calls + 1) / 1e3 if us else None
 
 
-def kernels_launched(fn):
-    """Device kernels one call of ``fn`` launches (torch.profiler), or
-    None when no device event was recorded."""
+def kernel_names(fn):
+    """The names of the device kernels one call of ``fn`` launches
+    (torch.profiler; empty when no device event was recorded)."""
     from torch.profiler import ProfilerActivity
 
     torch.cuda.synchronize()
@@ -344,8 +345,13 @@ def kernels_launched(fn):
                     warm=fn) as prof:
         fn()
         torch.cuda.synchronize()
-    n = len(device_events(prof.events(), within=RUN_RANGE))
-    return n or None
+    return [e.name for e in device_events(prof.events(), within=RUN_RANGE)]
+
+
+def kernels_launched(fn):
+    """Device kernels one call of ``fn`` launches (torch.profiler), or
+    None when no device event was recorded."""
+    return len(kernel_names(fn)) or None
 
 
 def stored_system(cfg, tmp, frame):
@@ -486,15 +492,17 @@ def tail_phase(flagship, exact, inputs, cams, offs, field):
     scene's frame 1, for the flagship (packed carry, bf16 residual) and
     the default path (no pack, f32 residual), each output and word equal
     as values; F also on ``field``, a reprojection that leaves the screen
-    at every edge with NaN and infinities in it. Returns ``(errs, ms,
-    dev_ms, bounds)`` by letter: the largest |err|, (wrapper, plain) ms
-    per call, device ms per call (the flagship's, and F's on the default
-    path's f32 residual as "F default") and each kernel's bound."""
+    at every edge with NaN and infinities in it. F must run its TMA-fed
+    variant on both paths (``filtered_tail_loader`` and the kernel's name
+    in a trace). Returns ``(errs, ms, dev_ms, bounds)`` by letter: the
+    largest |err|, (wrapper, plain) ms per call, device ms per call and
+    each kernel's bound (the flagship's, and F's on the default path's
+    f32 residual, no words, as "F default")."""
     from bmfr_tpu_torch.pipeline.denoise import _filter, _warp_planes
 
     t0 = time.perf_counter()
     errs = dict.fromkeys("FGH", 0.0)
-    ms, dev_ms = {}, {}
+    ms, dev_ms, bounds = {}, {}, {}
     cur = frame_of(inputs, 1)
     n_px = HEIGHT * WIDTH
     for label, cfg in (("flagship", flagship), ("default", exact)):
@@ -541,9 +549,22 @@ def tail_phase(flagship, exact, inputs, cams, offs, field):
         args_f = (cfg, filtered, planes, cur.albedo, k1["spp"], pp, 1)
         run_f = (lambda: filtered_tail(*args_f, pack=scratch),
                  lambda: filtered_tail_reference(*args_f, pack=scratch))
+        loader = filtered_tail_loader(
+            WIDTH, [t.data_ptr() for t in (filtered, planes, cur.albedo, pp)])
+        f_names = [n for n in kernel_names(run_f[0]) if "filtered_tail" in n]
+        print(f"[tail kernels] {label}: F's loader {loader}, kernels "
+              f"{[n[:80] for n in f_names]}")
+        require(loader == "tma" and len(f_names) == 1
+                and "TmaLoads" in f_names[0],
+                f"tail kernels {label}: F did not run its TMA-fed variant")
         if label == "default":
             dev_ms["F default"] = kernel_device_ms(run_f[0],
                                                    "filtered_tail_kernel")
+            # no words: the reads and out, tone and result (~101 B a
+            # pixel)
+            bounds["F default"] = bound(
+                nbytes(filtered, planes[4], planes[6:13], cur.albedo,
+                       k1["spp"], pp) + 9 * 4 * n_px, 220 * n_px)
             continue
         for key, (kernel, plain), name in (
                 ("H", run_h, "reproject_kernel"),
@@ -555,7 +576,7 @@ def tail_phase(flagship, exact, inputs, cams, offs, field):
         # per pixel: H ~30 (three dot products, two divisions); G ~30;
         # F ~220 (K4 with three powf, the 3x3 and cross min/max, the clamp
         # and blend)
-        bounds = {
+        bounds.update({
             "H": bound(nbytes(cur.positions, cams[0], offs[1], pp),
                        30 * n_px),
             "G": bound(nbytes(planes[0:6], cur.noisy, cur.positions,
@@ -563,7 +584,7 @@ def tail_phase(flagship, exact, inputs, cams, offs, field):
                               k1["accept"]) + 5 * 4 * n_px, 30 * n_px),
             "F": bound(nbytes(filtered, planes[4], planes[6:13], cur.albedo,
                               k1["spp"], pp) + (9 + 3) * 4 * n_px,
-                       220 * n_px)}
+                       220 * n_px)})
     print(f"[tail kernels] the phase took {time.perf_counter() - t0:.1f} s")
     return errs, ms, dev_ms, bounds
 
@@ -2252,6 +2273,11 @@ def main():
                     paths["householder flagship 16 columns"]["launches"][
                         "fit_reconstruct_direct"]),
     ]
+    # F's TMA-fed variant ran at 1280x720 ([tail kernels]); its default
+    # path's time and bound beside the flagship's
+    next(k for k in kernels if k["name"] == "filtered_tail").update(
+        loader="tma", default_device_ms=dev_ms["F default"],
+        default_bound_ms=bounds["F default"][0])
     print(json.dumps({"paths": paths, "build_s": build_s, "basis": basis,
                       "kernel_device_ms": dev_ms,
                       "fit_blocks_direct_ms": ms["C blocks"]}))

@@ -177,3 +177,53 @@ def test_phase_summary_from_fake_stamps():
     assert rec["warp_arrival_cycles"] == {
         "one": [0, 0], "two": [400, 400], "inside": [None, 700],
         "end": [1000, 1000]}
+
+
+def test_phase_script_adds_up_kernel_f_loop():
+    """Kernel F's CTAs are persistent and meet its markers once a tile:
+    the stamps of its ring kernel (not the K4-only kernel before it) add
+    up, from a BMFR_BEGIN at its start to a BMFR_END at its end, with no
+    closing barrier; the other kernels' sources stamp as before."""
+    tcp = phases_script()
+    source, _, _, name = tcp.KERNELS["F"]
+    assert "F" in tcp.LOOPED and name == "filtered_tail_kernel"
+    src = (ROOT / "bmfr_tpu_torch" / "csrc" / source).read_text()
+    stamped, names = tcp.stamped_source(src, name, loop=True)
+    assert sorted(names) == [1, 2, 3, 4]
+    assert max(names) < tcp.LOOP_SLOTS
+    for slot in names:
+        assert stamped.count(f"BMFR_STAMP({slot});") == 1
+    head = stamped.index(name + "(const Params")
+    body = stamped[head:stamped.index("// ---- the host side ----")]
+    assert body.count("BMFR_BEGIN;") == 1 and body.count("BMFR_END;") == 1
+    assert body.index("BMFR_BEGIN;") < body.index("BMFR_STAMP(1);")
+    assert body.rindex("BMFR_STAMP(4);") < body.index("BMFR_END;")
+    assert "__syncthreads();\n  BMFR_END;" not in body
+    k4_only = stamped[:head]
+    assert "BMFR_BEGIN" not in k4_only.split("LOOP_PRELUDE")[-1].split(
+        "#define BMFR_END")[-1]
+    assert "__shared__ unsigned bmfr_acc" in stamped
+    # a tile spec sets the kernel's tile and ring
+    assert tcp.tile_defines("64x16x2") == [
+        "-DBMFR_F_TX=64", "-DBMFR_F_TY=16", "-DBMFR_F_STAGES=2"]
+    assert tcp.tile_defines(None) == []
+
+
+def test_loop_phase_summary_from_fake_stamps():
+    """Two persistent CTAs of 2 warps on one SM at once: each warp's
+    cycles per phase (slot 0 before the first marker), start and end."""
+    tcp = phases_script()
+    clk = np.zeros((4, tcp.MAX_WARPS, tcp.SLOTS), np.int64)
+    for cta in (0, 1):
+        for w in range(2):
+            clk[cta, w, [0, 1, 2]] = [100, 300 + 100 * w, 600 - 100 * w]
+            clk[cta, w, [tcp.SLOTS - 2, tcp.SLOTS - 1]] = [5000, 6000]
+    rec = tcp.summarize_loop(clk, np.zeros(4, np.uint32),
+                             {1: "wait", 2: "work"})
+    assert (rec["ctas"], rec["warps"], rec["most_resident_per_sm"]) == (2, 2, 2)
+    assert rec["life_mean_cycles"] == 1000
+    phases = rec["phases"]
+    assert list(phases) == ["0. set-up", "1. wait", "2. work"]
+    assert phases["1. wait"]["mean_cycles"] == 300
+    assert phases["1. wait"]["share"] == pytest.approx(2 * 700 / 4000)
+    assert phases["2. work"]["share_warp0"] == pytest.approx(0.6)

@@ -1000,8 +1000,10 @@ def test_bench_on_card(cuda):
 
 # ---- kernels F, G and H (the stages XLA fuses in the TPU step) ----
 
-#: odd sizes, a row, a column and sizes under the 32x8 tile of kernel F
-TAIL_SHAPES = [(37, 53), (1, 77), (45, 1), (2, 3), (120, 200)]
+#: odd sizes, a row, a column and sizes under kernel F's 32x16 tile (its
+#: ring filled by the threads' loads: W % 4 != 0), and TMA-fed shapes
+#: whose last tiles are partial in both directions
+TAIL_SHAPES = [(37, 53), (1, 77), (45, 1), (2, 3), (120, 200), (100, 332)]
 
 
 def same_values(a, b):
@@ -1102,6 +1104,55 @@ def test_noisy_tail_kernel_is_bit_equal(cuda, H, W, frame, carry):
         assert torch.equal(packs[0][5:8], base[5:8])
 
 
+def filtered_tail_case(H, W, dev, residual, case, carry):
+    """Kernel F's arguments ``(cfg, filtered, planes, albedo, spp, pp,
+    frame)`` and, with a packed carry, the words it starts from: NaN and
+    infinities in the filtered colour and in prev_pixels, a field that
+    leaves the screen on every side."""
+    skips = {"skip_taa": dict(skip_taa=True),
+             "skip_second_accum": dict(skip_second_accum=True)}.get(case, {})
+    cfg = scene_cfg(H, W).replace(residual_dtype=residual, **skips)
+    frame = 0 if case == "frame 0" else 3
+    rng = np.random.default_rng(H * W + frame)
+    planes = tail_planes(H, W, dev, frame + 1)
+    filtered = with_extremes(torch.from_numpy(
+        rng.random((3, H, W)).astype(np.float32) * 2).to(dev), 3)
+    albedo = torch.from_numpy(rng.random((3, H, W)).astype(
+        np.float32)).to(dev)
+    spp = torch.from_numpy(rng.integers(1, 256, (H, W)).astype(
+        np.uint8)).to(dev)
+    yy = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(W, device=dev, dtype=torch.float32)[None, :]
+    pp = with_extremes(torch.stack([
+        (xx * 1.1 - 2.5 + 0.1 * yy).expand(H, W),
+        (yy * 1.2 - 2.5 - 0.05 * xx).expand(H, W)]).contiguous(), 4)
+    base = None
+    if carry == "packed":
+        base = torch.from_numpy(rng.integers(
+            -2**31, 2**31 - 1, (8, H, W), dtype=np.int64).astype(
+                np.int32)).to(dev)
+    return (cfg, filtered, planes, albedo, spp, pp, frame), base
+
+
+def check_filtered_tail(args, base):
+    """Kernel F on ``args`` (and a copy of the words ``base``) against
+    its plain version: out, tone and result equal as values (NaN where
+    NaN), words 5:8 bit for bit, words 0:5 untouched, one launch."""
+    from bmfr_tpu_torch.ops.tail import filtered_tail_reference
+
+    packs = [None, None] if base is None else [base.clone(), base.clone()]
+    n0 = filtered_tail.launches
+    got = filtered_tail(*args, pack=packs[0])
+    assert filtered_tail.launches == n0 + 1
+    want = filtered_tail_reference(*args, pack=packs[1])
+    torch.cuda.synchronize()
+    for name, g, w in zip(("out", "tone", "result"), got, want):
+        assert same_values(g, w), name
+    if base is not None:
+        assert torch.equal(packs[0], packs[1])
+        assert torch.equal(packs[0][0:5], base[0:5])
+
+
 @pytest.mark.parametrize("H,W", TAIL_SHAPES)
 @pytest.mark.parametrize("residual", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", ["frame 0", "frame 3", "skip_taa",
@@ -1114,44 +1165,98 @@ def test_filtered_tail_kernel_is_bit_equal(cuda, H, W, residual, case,
     untouched; NaN and infinities in the filtered colour and in
     prev_pixels (XLA's floor: NaN -> 0, saturating) and at the borders
     of every shape, down to a single row or column."""
-    from bmfr_tpu_torch.ops.tail import filtered_tail_reference
+    check_filtered_tail(*filtered_tail_case(H, W, cuda, residual, case,
+                                            carry))
 
-    skips = {"skip_taa": dict(skip_taa=True),
-             "skip_second_accum": dict(skip_second_accum=True)}.get(case, {})
-    cfg = scene_cfg(H, W).replace(residual_dtype=residual, **skips)
-    frame = 0 if case == "frame 0" else 3
-    rng = np.random.default_rng(H * W + frame)
-    planes = tail_planes(H, W, cuda, frame + 1)
-    filtered = with_extremes(torch.from_numpy(
-        rng.random((3, H, W)).astype(np.float32) * 2).to(cuda), 3)
-    albedo = torch.from_numpy(rng.random((3, H, W)).astype(
-        np.float32)).to(cuda)
-    spp = torch.from_numpy(rng.integers(1, 256, (H, W)).astype(
-        np.uint8)).to(cuda)
-    yy = torch.arange(H, device=cuda, dtype=torch.float32)[:, None]
-    xx = torch.arange(W, device=cuda, dtype=torch.float32)[None, :]
-    # a field that leaves the screen on every side, with extremes
-    pp = with_extremes(torch.stack([
-        (xx * 1.1 - 2.5 + 0.1 * yy).expand(H, W),
-        (yy * 1.2 - 2.5 - 0.05 * xx).expand(H, W)]).contiguous(), 4)
-    packs = [None, None]
-    if carry == "packed":
-        base = torch.from_numpy(rng.integers(
-            -2**31, 2**31 - 1, (8, H, W), dtype=np.int64).astype(
-                np.int32)).to(cuda)
-        packs = [base.clone(), base.clone()]
-    n0 = filtered_tail.launches
-    got = filtered_tail(cfg, filtered, planes, albedo, spp, pp, frame,
-                           pack=packs[0])
-    assert filtered_tail.launches == n0 + 1
-    want = filtered_tail_reference(cfg, filtered, planes, albedo, spp, pp,
-                                   frame, pack=packs[1])
+
+def test_filtered_tail_kernel_wraps_its_ring(cuda):
+    """The packed flagship case at 1280x720: 1800 tiles, several times
+    the persistent CTAs, so every CTA wraps its TMA ring."""
+    check_filtered_tail(*filtered_tail_case(720, 1280, cuda, "bfloat16",
+                                            "frame 3", "packed"))
+
+
+def f_kernel_names(args, pack):
+    """The device kernels one call of kernel F launches (torch.profiler,
+    the call once before the traced range: a trace loses its run's first
+    kernel otherwise)."""
+    from torch.profiler import ProfilerActivity
+
+    from bmfr_tpu_torch.profiling import RUN_RANGE, device_events, traced_run
+
+    def run():
+        filtered_tail(*args, pack=pack)
+
     torch.cuda.synchronize()
-    for name, g, w in zip(("out", "tone", "result"), got, want):
-        assert same_values(g, w), name
-    if carry == "packed":
-        assert torch.equal(packs[0], packs[1])
-        assert torch.equal(packs[0][0:5], base[0:5])
+    with traced_run([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                    warm=run) as prof:
+        run()
+        torch.cuda.synchronize()
+    return [e.name for e in device_events(prof.events(), within=RUN_RANGE)]
+
+
+@pytest.mark.parametrize("residual", ["float32", "bfloat16"])
+def test_filtered_tail_loaders(cuda, residual):
+    """The loader pick: TMA at 1280x720, the threads' loads at W = 53 and
+    at 1280x720 on a filtered colour 4 B off 16; each variant's kernel
+    is the one that ran and equals the plain version."""
+    from bmfr_tpu_torch.ops.tail import filtered_tail_loader
+
+    for (H, W), shift, loader in (((720, 1280), 0, "tma"),
+                                  ((37, 53), 0, "threads"),
+                                  ((720, 1280), 1, "threads")):
+        args, base = filtered_tail_case(H, W, cuda, residual, "frame 3",
+                                        "packed")
+        if shift:
+            buf = torch.empty(args[1].numel() + shift, device=cuda)
+            moved = buf[shift:].view(args[1].shape)
+            moved.copy_(args[1])
+            args = (args[0], moved, *args[2:])
+        pick = filtered_tail_loader(
+            W, [t.data_ptr() for t in (args[1], args[2], args[3], args[5])])
+        assert pick == loader, (H, W, shift)
+        tag = {"tma": "TmaLoads", "threads": "ThreadLoads"}[loader]
+        names = f_kernel_names(args, base.clone())
+        assert len(names) == 1 and tag in names[0], names
+        check_filtered_tail(args, base)
+
+
+def test_filtered_tail_maps_under_threads(cuda):
+    """Kernel F's tensor maps are encoded and cached in the library under
+    a lock: eight fresh host threads, whose first CUDA work is F, each
+    launch it on shapes of their own (40 inputs, more than the cache
+    holds, so entries are replaced while others are read) and every call
+    equals the plain version."""
+    import threading
+
+    from bmfr_tpu_torch.ops import _lib
+
+    _lib.library()      # built before the threads' time limit starts
+    cases = [filtered_tail_case(24 + 8 * (k % 5), 64 + 4 * k, cuda,
+                                "bfloat16", "frame 3", "temporal")[0]
+             for k in range(40)]
+    got, errors = {}, []
+
+    def worker(w):
+        try:
+            for k in range(w, len(cases), 8):
+                for _ in range(3):
+                    got[k] = filtered_tail(*cases[k])
+            torch.cuda.synchronize()
+        except Exception as e:      # reported below, on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(w,)) for w in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+        assert not th.is_alive()
+    assert not errors, errors
+    from bmfr_tpu_torch.ops.tail import filtered_tail_reference
+    for k, args in enumerate(cases):
+        want = filtered_tail_reference(*args)
+        assert all(same_values(g, w) for g, w in zip(got[k], want)), k
 
 
 @pytest.mark.parametrize("path", ["default", "flagship",

@@ -162,3 +162,26 @@ def test_tails_write_only_their_words(tiny_cfg, tiny_scene, carry):
         for a, b in zip(outs, outs_packed):
             assert torch.equal(a, b)
         assert torch.equal(k1["accum"], k1_packed["accum"])
+
+
+@pytest.mark.parametrize("W,offsets,want", [
+    (1280, (0, 0, 0, 0), "tma"),        # 1280x720: every plane on 16 B
+    (332, (0, 16, 512, 48), "tma"),     # a width whose tiles end partial
+    (4, (0, 0, 0, 0), "tma"),
+    (53, (0, 0, 0, 0), "threads"),      # a row of 212 B
+    (6, (0, 0, 0, 0), "threads"),       # 24 B: a multiple of 4 and 8 only
+    (1, (0, 0, 0, 0), "threads"),
+    (1280, (4, 0, 0, 0), "threads"),    # filtered 4 B off 16
+    (1280, (0, 8, 0, 0), "threads"),    # planes 8 B off
+    (1280, (0, 0, 12, 0), "threads"),   # albedo 12 B off
+    (1280, (0, 0, 0, 20), "threads"),   # prev_pixels 4 B off
+])
+def test_filtered_tail_loader(W, offsets, want):
+    """Kernel F's ring is fed by TMA only where every plane TMA reads
+    starts on 16 B: the rows (4 W bytes) and the four tensors' addresses
+    (filtered, planes, albedo, prev_pixels) multiples of 16."""
+    from bmfr_tpu_torch.ops.tail import VARIANTS, filtered_tail_loader
+
+    base = 1 << 40
+    assert filtered_tail_loader(W, [base + o for o in offsets]) == want
+    assert set(VARIANTS) == {"tma", "threads"} and 0 not in VARIANTS.values()
