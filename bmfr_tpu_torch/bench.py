@@ -145,22 +145,26 @@ def scene_inputs(sc, device):
 
 def expected_launches(cfg, frames):
     """Each counted kernel wrapper's launches in one ``denoise_sequence``
-    of ``frames`` frames on a card: the fused warp (A) on every frame with
-    history; the direct fitter (B for Cholesky, C for Householder) or the
-    block fitter (D, Householder on the block path but ``"xla"``) on every
-    frame; the reprojection (H), the K1 tail (G) and K4 + K5 (F) on every
-    frame of every path."""
+    of ``frames`` frames on a card: the fused warp (A) or, on every other
+    warp mode, the raw-plane tap warp (I) on every frame with history;
+    the direct fitter (B for Cholesky, C for Householder) on every frame,
+    or on the block path the feature-block store (J) and the block
+    reconstruction (K) on every frame, with the block fitter (D,
+    Householder but ``"xla"``) between them; the reprojection (H), the K1
+    tail (G) and K4 + K5 (F) on every frame of every path."""
     n = dict.fromkeys(COUNTERS, 0)
     for name in ("reproject_coords", "noisy_tail", "filtered_tail"):
         n[name] = frames
-    if cfg.warp_mode == "pallas":
-        n["warp_blend"] = frames - 1
+    n["warp_blend" if cfg.warp_mode == "pallas"
+      else "warp_blend_planes"] = frames - 1
     if cfg.skip_fitting:
         return n
     if cfg.fitter_impl == "pallas_direct":
         n["fit_reconstruct_cholesky" if cfg.solver == "cholesky"
           else "fit_reconstruct_direct"] = frames
-    elif cfg.fitter_impl != "xla" and cfg.solver == "householder":
+        return n
+    n["build_feature_blocks"] = n["weighted_sum"] = frames
+    if cfg.fitter_impl != "xla" and cfg.solver == "householder":
         n["fit_blocks_pallas"] = frames
     return n
 

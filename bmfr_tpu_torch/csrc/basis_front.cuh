@@ -53,7 +53,9 @@ inline Basis make_basis(const unsigned long long* planes, int F,
 // skipped and the op selects rather than branches: a branch between a
 // pixel's loads keeps them from being in flight together (a version that
 // branched around the constant's load took 1.2-1.4x as long, PERF.md).
-__device__ __forceinline__ float feature_value(const Basis& b, int f,
+// Table: Basis, or any table of plane[] and op[] (feature_table.cuh).
+template <class Table>
+__device__ __forceinline__ float feature_value(const Table& b, int f,
                                                int64_t off) {
   const int op = b.op[f];
   const float v = __ldg(b.plane[f] + off);

@@ -20,15 +20,16 @@
 // once, and keeps the 16 channels of a tap in registers, so no
 // intermediate tap plane is ever written.
 //
-// Arithmetic mirrors the plain PyTorch version operation by operation;
-// the products and sums use __fmul_rn/__fadd_rn/__fsub_rn so that nvcc
-// does not contract them into FMAs, which keeps the limit compares (and
-// hence the accept bits) identical to the plain version's.
+// The coordinates, the masks and the blend are tap_blend.cuh's (which
+// kernel I shares): operation by operation the plain PyTorch version's,
+// unfused, which keeps the limit compares (and hence the accept bits)
+// identical to the plain version's.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tap_blend.cuh"
 
 namespace {
+
+using namespace tap_blend;
 
 __device__ __forceinline__ float bf16_lo(uint32_t u) {
   return __uint_as_float(u << 16);
@@ -36,14 +37,6 @@ __device__ __forceinline__ float bf16_lo(uint32_t u) {
 
 __device__ __forceinline__ float bf16_hi(uint32_t u) {
   return __uint_as_float(u & 0xFFFF0000u);
-}
-
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-
-__device__ __forceinline__ float sq3(float a, float b, float c) {
-  return add(add(mul(a, a), mul(b, b)), mul(c, c));
 }
 
 __global__ void warp_blend_kernel(const int32_t* __restrict__ src8,
@@ -57,42 +50,7 @@ __global__ void warp_blend_kernel(const int32_t* __restrict__ src8,
   const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
 
-  const float px = pfx[p];
-  const float py = pfy[p];
-  // floor toward -inf with int32 saturation (NaN -> 0), as XLA and
-  // torch's CUDA cast do; the fractions use the integer, as in JAX
-  const int ix = __float2int_rd(px);
-  const int iy = __float2int_rd(py);
-  const float fx = sub(px, (float)ix);
-  const float fy = sub(py, (float)iy);
-
-  // mask bits (warp_blend.mask_bits), written without ix+1 / iy+1 so no
-  // int32 overflow can occur at saturated coordinates
-  const bool x0_in = ix >= 0 && ix < W;
-  const bool x1_in = ix >= -1 && ix < W - 1;
-  const bool y0_in = iy >= 0 && iy < H;
-  const bool y1_in = iy >= -1 && iy < H - 1;
-  const bool inb[4] = {y0_in && x0_in, y0_in && x1_in, y1_in && x0_in,
-                       y1_in && x1_in};
-  const bool x_lo = ix >= 0, x_hi = ix < W - 1;
-  const bool y_lo = iy >= 0, y_hi = iy < H - 1;
-  const bool k5m[4] = {y_lo && x_lo, y_lo && x_hi, y_hi && x_lo,
-                       y_hi && x_hi};
-
-  // clipped tap coordinates clip(i) and clip(i + 1), the latter clamped
-  // before the + 1 so a saturated coordinate cannot overflow into a
-  // negative address; at ix = -1 both x taps are column 0 (bit 8)
-  const int cx0 = min(max(ix, 0), W - 1);
-  const int cx1 = min(max(ix, -1), W - 2) + 1;
-  const int cy0 = min(max(iy, 0), H - 1);
-  const int cy1 = min(max(iy, -1), H - 2) + 1;
-  const int64_t tap_off[4] = {(int64_t)cy0 * W + cx0, (int64_t)cy0 * W + cx1,
-                              (int64_t)cy1 * W + cx0, (int64_t)cy1 * W + cx1};
-
-  const float omfx = sub(1.0f, fx), omfy = sub(1.0f, fy);
-  const float w[4] = {mul(omfx, omfy), mul(fx, omfy), mul(omfx, fy),
-                      mul(fx, fy)};
-
+  const Taps tp = pixel_taps(pfx[p], pfy[p], H, W);
   float cur[6];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
@@ -100,53 +58,20 @@ __global__ void warp_blend_kernel(const int32_t* __restrict__ src8,
     cur[3 + c] = normals[c * n + p];
   }
 
-  float pc[3] = {0.f, 0.f, 0.f}, k4[3] = {0.f, 0.f, 0.f},
-        k5[3] = {0.f, 0.f, 0.f};
-  float spp_sum = 0.f, tw = 0.f, k5w = 0.f;
-  int accept = 0;
-
+  Sums s;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
+    const int64_t o = tap_offset(tp, i, tp.cx1);
     float t[16];
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      const uint32_t u = (uint32_t)__ldg(src8 + k * n + tap_off[i]);
+      const uint32_t u = (uint32_t)__ldg(src8 + k * n + o);
       t[2 * k] = bf16_lo(u);
       t[2 * k + 1] = bf16_hi(u);
     }
-    const float pd = sq3(sub(t[0], cur[0]), sub(t[1], cur[1]),
-                         sub(t[2], cur[2]));
-    const float nd = sq3(sub(t[3], cur[3]), sub(t[4], cur[4]),
-                         sub(t[5], cur[5]));
-    const bool ok = inb[i] && (pd < pos_lim) && (nd < nrm_lim);
-    const float wgt = ok ? w[i] : 0.0f;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      pc[c] = add(pc[c], mul(wgt, t[6 + c]));
-      k4[c] = add(k4[c], mul(wgt, t[10 + c]));
-    }
-    spp_sum = add(spp_sum, mul(wgt, t[9]));
-    tw = add(tw, wgt);
-    accept |= ok ? (1 << i) : 0;
-    const float wm = k5m[i] ? w[i] : 0.0f;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) k5[c] = add(k5[c], mul(wm, t[13 + c]));
-    k5w = add(k5w, wm);
+    add_tap(s, tp, i, t, cur, pos_lim, nrm_lim);
   }
-
-  out[0 * n + p] = pc[0];
-  out[1 * n + p] = pc[1];
-  out[2 * n + p] = pc[2];
-  out[3 * n + p] = spp_sum;
-  out[4 * n + p] = tw;
-  out[5 * n + p] = (float)accept;
-  out[6 * n + p] = k4[0];
-  out[7 * n + p] = k4[1];
-  out[8 * n + p] = k4[2];
-  out[9 * n + p] = k5[0];
-  out[10 * n + p] = k5[1];
-  out[11 * n + p] = k5[2];
-  out[12 * n + p] = k5w;
+  store(out, n, p, s);
 }
 
 }  // namespace

@@ -28,16 +28,18 @@ SOURCES = ("warp_blend.cu", "fitter_chol.cu", "fitter_chol_basis.cu",
            "householder_blocks.cu", "householder_blocks_smem.cu",
            "householder_direct.cu", "householder_direct_basis.cu",
            "warp_rows.cu", "reproject.cu", "noisy_tail.cu",
-           "filtered_tail.cu")
+           "filtered_tail.cu", "warp_taps.cu", "feature_blocks.cu",
+           "block_reconstruct.cu")
 HEADERS = ("fitter_front.cuh", "householder.cuh", "basis_front.cuh",
-           "torch_ops.cuh")
+           "torch_ops.cuh", "feature_table.cuh", "tap_blend.cuh")
 #: the device kernels the sources define (``__global__`` names), as a
 #: profiler trace names them
 KERNELS = ("warp_blend_kernel", "fit_chol_kernel", "fit_chol_basis_kernel",
            "fit_blocks_regs_kernel", "fit_blocks_smem_kernel",
            "fit_direct_kernel", "fit_direct_basis_kernel", "warp_rows_kernel",
            "reproject_kernel", "noisy_tail_kernel", "filtered_tail_kernel",
-           "filtered_tail_k4_kernel")
+           "filtered_tail_k4_kernel", "warp_taps_kernel",
+           "feature_blocks_kernel", "block_reconstruct_kernel")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -82,6 +84,16 @@ _SIGNATURES = {
     # (or null), H, W, second_alpha, taa_alpha, taa_keep, residual_bf16,
     # accum_prev, variant (0 K4 only, 1 thread loads, 2 TMA), stream
     "bmfr_filtered_tail": (_P,) * 9 + (_I, _I, _F, _F, _F, _I, _I, _I, _P),
+    # state positions, normals, noisy, spp, out, result; positions,
+    # normals, pfx, pfy, out, H, W, pos_lim, nrm_lim, mode, stream
+    "bmfr_warp_taps": (_P,) * 11 + (_I, _I, _F, _F, _I, _P),
+    # planes, ops (host arrays: fitter_direct.feature_table), F, accum,
+    # out, frame, H, W, block_edge, blocks_x, n_blocks, mode, stream
+    "bmfr_feature_blocks": (_P, _P, _I, _P, _P, _P) + (_I,) * 6 + (_P,),
+    # planes, ops, F, lo, weights, mins_maxs, out, frame, H, W,
+    # block_edge, blocks_x, sanitize, stream
+    "bmfr_block_reconstruct": (_P, _P, _I, _I) + (_P,) * 4 + (_I,) * 5 + (
+        _P,),
 }
 
 #: an entry point's return codes below 0: a TMA tensor map could not be

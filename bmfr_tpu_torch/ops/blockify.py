@@ -8,16 +8,24 @@ and block ``b = gy//be * blocks_x + gx//be`` holds element ``e = gx%be +
 symmetric pad and a dynamic slice; torch's ``F.pad`` has no symmetric
 mode, and the fitter kernels need no padded copy at all, so here the
 view is a gather by mirrored indices.
+
+:func:`build_feature_blocks` (kernel J, ``csrc/feature_blocks.cu``)
+replaces what XLA fuses on the TPU out of ``build_feature_blocks``
+(``bmfr_tpu/ops/blockify.py:181``): the features, the store contract and
+the jittered block layout in one pass, with no planes or view copy.
 """
 
 from __future__ import annotations
 
+import ctypes
 import threading
 
 import torch
 
 from ..features import evaluate_features
 from ..geometry import BLOCK_OFFSETS
+from . import _lib
+from .frame import frame_tensor
 
 #: torch dtype of each ``tmp_data_dtype``
 STORAGE_DTYPES = {"float32": torch.float32, "float16": torch.float16,
@@ -143,12 +151,57 @@ def _feature_planes(cfg, normals, positions, accum_color):
     return planes
 
 
-def build_feature_blocks(cfg, normals, positions, accum_color, frame):
-    """Feature-vector build + block store of K1 (``blockify.py:181-197``):
-    ``[n_blocks, buffer_count, block_pixels]`` in the storage dtype."""
+def build_feature_blocks_reference(cfg, normals, positions, accum_color,
+                                   frame):
+    """Plain PyTorch version of :func:`build_feature_blocks`."""
     blocks = blockify_planes(
         cfg, _feature_planes(cfg, normals, positions, accum_color), frame)
     return blocks.to(storage_dtype(cfg))
+
+
+def build_feature_blocks(cfg, normals, positions, accum_color, frame):
+    """Feature-vector build + block store of K1 (``blockify.py:181-197``):
+    ``[n_blocks, buffer_count, block_pixels]`` in the storage dtype, from
+    the normals, positions and accumulated colour (f32 ``[3, H, W]``) at
+    frame ``frame`` (a host int or a 0-d int32 tensor on their card).
+
+    On a CUDA tensor this launches kernel J (``csrc/feature_blocks.cu``),
+    which reads the frame and its jitter on the card and computes the
+    built-in features itself (:func:`~bmfr_tpu_torch.ops.fitter_direct.
+    feature_table`); on a CPU tensor it runs
+    :func:`build_feature_blocks_reference`. Any other device raises.
+    """
+    from .fitter_direct import feature_table
+    from .fitter_pallas import MODE
+
+    dev = normals.device
+    if dev.type == "cpu":
+        return build_feature_blocks_reference(cfg, normals, positions,
+                                              accum_color, frame)
+    if dev.type != "cuda":
+        raise ValueError(f"build_feature_blocks: unsupported device {dev}")
+    H, W = cfg.image_height, cfg.image_width
+    for t, label in ((normals, "normals"), (positions, "positions"),
+                     (accum_color, "accum_color")):
+        _lib.check_tensor(t, label, torch.float32, (3, H, W), dev)
+    ft = frame_tensor(frame, dev)
+    extra, planes, ops = feature_table(cfg, normals, positions, accum_color)
+    out = torch.empty((cfg.n_blocks, cfg.buffer_count, cfg.block_pixels),
+                      dtype=storage_dtype(cfg), device=dev)
+    _lib.launch("bmfr_feature_blocks", ctypes.addressof(planes),
+                ctypes.addressof(ops), cfg.feature_count,
+                accum_color.data_ptr(), out.data_ptr(), ft.data_ptr(), H, W,
+                cfg.block_edge, cfg.blocks_x, cfg.n_blocks,
+                MODE[cfg.tmp_data_dtype])
+    _lib.count_launch(build_feature_blocks)
+    # the extra planes' memory is reused only after the kernel, in stream
+    # order
+    del extra
+    return out
+
+
+#: kernel launches since the count was last set to 0
+build_feature_blocks.launches = 0
 
 
 def build_feature_view(cfg, normals, positions, accum_color, frame):

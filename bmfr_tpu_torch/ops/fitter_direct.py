@@ -45,9 +45,9 @@ the noise (none on feature 0) and the reconstruction from the
 pre-rounding features are the default front's.
 
 The plain versions are the block path the JAX tests hold the direct
-kernels to (``tests/test_fitter_direct.py``): ``build_feature_blocks``
--> ``fit_blocks`` (plain, Cholesky or Householder) ->
-``weighted_sum_image``.
+kernels to (``tests/test_fitter_direct.py``):
+``build_feature_blocks_reference`` -> ``fit_blocks`` (plain, Cholesky or
+Householder) -> ``weighted_sum_image``.
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ from ..config import DEFAULT_FEATURES
 from ..features import _BUILTIN_FEATURES, FEATURE_REGISTRY, evaluate_features
 from ..rng import noise_amp
 from . import _lib
-from .blockify import build_feature_blocks
+from .blockify import build_feature_blocks_reference
 from .fitter import fit_blocks_reference
 from .fitter_pallas import MAX_BUFFERS, MIN_BUFFERS, MODE
 from .frame import frame_tensor
@@ -135,9 +135,9 @@ def plane_table(plan, normals, positions, accum, extra):
     (squared in the kernel), the constant the first colour plane (which
     the kernels read anyway; they take 1), any other feature its extra
     plane. Returns (addresses, op of feature i in byte i % 8 of word
-    i // 8)."""
+    i // 8; at least two words)."""
     step = normals[0].numel() * normals.element_size()
-    addresses, words = [], [0, 0]
+    addresses, words = [], [0] * max(2, -(-len(plan.codes) // 8))
     for i, code in enumerate(plan.codes):
         if code >= PLANE_CODE:
             plane, op = extra.data_ptr() + (code - PLANE_CODE) * step, VALUE
@@ -166,9 +166,32 @@ def basis_planes(cfg, normals, positions, plan=None):
                              positions).to(torch.float32).contiguous()
 
 
+#: the most features kernels J and K take (``csrc/feature_table.cuh``)
+TABLE_FEATURES = 64
+
+
+def feature_table(cfg, normals, positions, const_plane):
+    """The basis of ``cfg`` as kernels J and K take it
+    (``csrc/feature_table.cuh``): :func:`plane_table` with the constant
+    reading ``const_plane``. Returns ``(extra, planes, ops)``: the extra
+    planes (keep them until the kernel is launched), and the host arrays
+    of plane addresses and op words (ctypes, pass their addresses)."""
+    if cfg.feature_count > TABLE_FEATURES:
+        raise NotImplementedError(f"kernels J and K take at most "
+                                  f"{TABLE_FEATURES} features, not "
+                                  f"{cfg.feature_count}")
+    plan = basis_plan(cfg)
+    extra = basis_planes(cfg, normals, positions, plan)
+    addresses, words = plane_table(plan, normals, positions, const_plane,
+                                   extra)
+    return (extra, (ctypes.c_uint64 * len(addresses))(*addresses),
+            (ctypes.c_uint64 * len(words))(*words))
+
+
 def _fit_plain(cfg, solver, normals, positions, accum, frame):
     cfg = cfg.replace(solver=solver)
-    tmp = build_feature_blocks(cfg, normals, positions, accum, frame)
+    tmp = build_feature_blocks_reference(cfg, normals, positions, accum,
+                                         frame)
     return fit_blocks_reference(cfg, tmp, frame)
 
 

@@ -1,5 +1,5 @@
-"""The fused temporal warp + per-stage blend (kernel A) and its plain
-PyTorch version.
+"""The fused temporal warp + per-stage blend (kernel A), the raw-plane
+tap warp + blend (kernel I), and their plain PyTorch versions.
 
 Replaces the TPU's ``_blend_kernel3`` (``bmfr_tpu/ops/warp_pallas.py``,
 entry ``warp_blend_pallas``). For every pixel it reads the four clipped
@@ -14,6 +14,18 @@ counterpart: a direct clipped gather gives exactly the taps of the JAX
 package's exact tier (``blend_from_rows`` over ``gather_planes``). Its
 ``ix < 0`` rule (bit 8) holds by construction: at ``ix = -1`` both
 ``clip(ix)`` and ``clip(ix + 1)`` are column 0.
+
+:func:`warp_blend_planes` (kernel I, ``csrc/warp_taps.cu``) replaces what
+XLA fuses on the TPU on every other warp mode: ``stack_state``,
+``gather_taps`` and the tap branches (``bmfr_tpu/pipeline/denoise.py:
+115-119``, ``bmfr_tpu/ops/warp.py:65``, ``reproject.py:78-114``,
+``accumulate.py:32-55``, ``taa.py:72-97``). It gathers the taps straight
+from the raw-plane state's six tensors and blends them as
+:func:`blend_from_taps` does, with no stacked copy and no tap tensor.
+The bf16 modes round each tap to bf16 (nearest-even), which is what
+their packs hold; ``packed_x_bf16`` also keeps its words' columns (at
+``ix = INT_MAX`` the dx = 1 taps read column ``W - 1``, not the wrapped
+column 0 of ``clip(ix + 1)``).
 """
 
 from __future__ import annotations
@@ -161,3 +173,64 @@ def warp_blend(cfg, src8, positions, normals, pfx, pfy):
 
 #: kernel launches since the count was last set to 0
 warp_blend.launches = 0
+
+#: the warp modes kernel I serves, by its template code
+TAP_MODES = {"float32": 0, "packed_bf16": 1, "packed_x_bf16": 2}
+
+
+def warp_blend_planes_reference(cfg, state, positions, normals, pfx, pfy,
+                                mode):
+    """Plain PyTorch version of :func:`warp_blend_planes`: stack the
+    state, gather its four clipped taps in warp mode ``mode``, blend."""
+    taps = gather_taps(state.stacked(), floor_int(pfy), floor_int(pfx),
+                       mode)
+    return blend_gathered_taps(cfg, taps, positions, normals, pfx, pfy)
+
+
+def warp_blend_planes(cfg, state, positions, normals, pfx, pfy, mode):
+    """The 13 blend planes ``f32[13, H, W]`` (:func:`blend_from_taps`'
+    layout) of the raw-plane previous state ``state`` (a
+    :class:`~bmfr_tpu_torch.pipeline.state.TemporalState`: positions,
+    normals, noisy, out and result f32 ``[3, H, W]``, spp u8 ``[H, W]``)
+    at the reprojected coordinates ``pfx``/``pfy`` (f32 ``[H, W]``),
+    gathered in warp mode ``mode`` (``"float32"``, ``"packed_bf16"`` or
+    ``"packed_x_bf16"``) and gated against the current
+    ``positions``/``normals`` (f32 ``[3, H, W]``).
+
+    On a CUDA tensor this launches kernel I, which reads the state's
+    tensors in place; on a CPU tensor it runs
+    :func:`warp_blend_planes_reference`. Any other device raises.
+    """
+    if mode not in TAP_MODES:
+        raise ValueError(f"warp_blend_planes: warp mode {mode!r} is not one "
+                         f"of {tuple(TAP_MODES)}")
+    dev = pfx.device
+    if dev.type == "cpu":
+        return warp_blend_planes_reference(cfg, state, positions, normals,
+                                           pfx, pfy, mode)
+    if dev.type != "cuda":
+        raise ValueError(f"warp_blend_planes: unsupported device {dev}")
+    H, W = pfx.shape
+    for name in ("positions", "normals", "noisy", "out", "result"):
+        _lib.check_tensor(getattr(state, name), f"state.{name}",
+                          torch.float32, (3, H, W), dev)
+    _lib.check_tensor(state.spp, "state.spp", torch.uint8, (H, W), dev)
+    _lib.check_tensor(positions, "positions", torch.float32, (3, H, W), dev)
+    _lib.check_tensor(normals, "normals", torch.float32, (3, H, W), dev)
+    _lib.check_tensor(pfx, "pfx", torch.float32, (H, W), dev)
+    _lib.check_tensor(pfy, "pfy", torch.float32, (H, W), dev)
+    out = torch.empty((BLEND_PLANES, H, W), dtype=torch.float32, device=dev)
+    _lib.launch("bmfr_warp_taps", state.positions.data_ptr(),
+                state.normals.data_ptr(), state.noisy.data_ptr(),
+                state.spp.data_ptr(), state.out.data_ptr(),
+                state.result.data_ptr(), positions.data_ptr(),
+                normals.data_ptr(), pfx.data_ptr(), pfy.data_ptr(),
+                out.data_ptr(), H, W,
+                float(np.float32(cfg.position_limit_squared)),
+                float(np.float32(cfg.normal_limit_squared)), TAP_MODES[mode])
+    _lib.count_launch(warp_blend_planes)
+    return out
+
+
+#: kernel launches since the count was last set to 0
+warp_blend_planes.launches = 0

@@ -11,28 +11,29 @@ Port of :mod:`bmfr_tpu.pipeline.denoise`. Per frame (opencl/bmfr.cpp:
    :class:`~bmfr_tpu_torch.pipeline.state.TemporalState`, as the
    streaming and checkpoint carry)
    (:func:`~bmfr_tpu_torch.ops.warp_blend.warp_blend`); every other mode
-   gathers the taps of the raw-plane
-   :class:`~bmfr_tpu_torch.pipeline.state.TemporalState` with
-   :func:`~bmfr_tpu_torch.ops.warp.gather_taps` in that mode and blends
-   them (:func:`~bmfr_tpu_torch.ops.warp_blend.blend_gathered_taps`);
+   runs kernel I, which gathers the taps of the raw-plane
+   :class:`~bmfr_tpu_torch.pipeline.state.TemporalState` in that mode
+   and blends them (:func:`~bmfr_tpu_torch.ops.warp_blend.
+   warp_blend_planes`);
 3. the K1 tail and the next packed state's words 0:5 (kernel G,
    :func:`~bmfr_tpu_torch.ops.reproject.noisy_tail`);
 4. the fitter branch, the filtered image: ``fitter_impl="pallas_direct"``
    runs kernel B (``solver="cholesky"``) or kernel C (``"householder"``)
    on the raw planes; every other ``fitter_impl`` builds the feature
-   blocks, fits them (:func:`~bmfr_tpu_torch.ops.fitter.fit_blocks`:
-   kernel D, or the plain path for ``"xla"`` and the Cholesky solver) and
-   reconstructs them (:func:`~bmfr_tpu_torch.ops.weighted_sum.
-   weighted_sum`);
+   blocks (kernel J, :func:`~bmfr_tpu_torch.ops.blockify.
+   build_feature_blocks`), fits them (:func:`~bmfr_tpu_torch.ops.fitter.
+   fit_blocks`: kernel D, or the plain path for ``"xla"`` and the
+   Cholesky solver) and reconstructs the image (kernel K,
+   :func:`~bmfr_tpu_torch.ops.weighted_sum.weighted_sum`);
 5. K4, 6. K5 and the next packed state's words 5:8 (kernel F,
    :func:`~bmfr_tpu_torch.ops.tail.filtered_tail`);
 7. the next state, of the type of the previous one: the state buffer
    that kernels G and F packed in place, or a new :class:`TemporalState`
    of this frame's planes.
 
-Kernels F, G and H stand for the stages that XLA fuses into the TPU's
-jitted step; ``plain=True`` runs the composition of the stage functions
-they replace.
+Kernels F, G, H, I, J and K stand for the stages that XLA fuses into
+the TPU's jitted step; ``plain=True`` runs the composition of the stage
+functions they replace.
 
 Frame 0 has no history: no warp or gather runs and the planes are zero
 (JAX's ``history="never"``). The reference's one-frame matrix lag (frame
@@ -53,21 +54,22 @@ import numpy as np
 import torch
 
 from ..config import check_supported
-from ..ops.blockify import build_feature_blocks
+from ..ops.blockify import (build_feature_blocks,
+                            build_feature_blocks_reference)
 from ..ops.fitter import fit_blocks
 from ..ops.fitter_direct import (fit_reconstruct_cholesky,
                                  fit_reconstruct_cholesky_reference,
                                  fit_reconstruct_direct,
                                  fit_reconstruct_direct_reference)
 from ..ops.frame import has_history
-from ..ops.gather import floor_int
 from ..ops.reproject import (noisy_tail, noisy_tail_reference,
                              reproject_coords, reproject_coords_reference)
 from ..ops.tail import filtered_tail, filtered_tail_reference
-from ..ops.warp import gather_taps, pack_pairs_bf16
-from ..ops.warp_blend import (BLEND_PLANES, blend_gathered_taps, warp_blend,
+from ..ops.warp import pack_pairs_bf16
+from ..ops.warp_blend import (BLEND_PLANES, warp_blend, warp_blend_planes,
+                              warp_blend_planes_reference,
                               warp_blend_reference)
-from ..ops.weighted_sum import weighted_sum
+from ..ops.weighted_sum import weighted_sum, weighted_sum_reference
 from ..profiling import stage
 from .state import TemporalState
 
@@ -129,10 +131,9 @@ def _warp_planes(cfg, state, inputs, pfx, pfy, history, plain):
         # no tiers on the GPU: the kernel serves every pixel
         return planes, torch.tensor([0, 0, 0, 0, 0, H * W],
                                     dtype=torch.int32)
-    taps = gather_taps(state.stacked(), floor_int(pfy), floor_int(pfx),
-                       mode=cfg.warp_mode)
-    planes = blend_gathered_taps(cfg, taps, inputs.positions,
-                                 inputs.normals, pfx, pfy)
+    warp = warp_blend_planes_reference if plain else warp_blend_planes
+    planes = warp(cfg, state, inputs.positions, inputs.normals, pfx, pfy,
+                  cfg.warp_mode)
     return planes, torch.zeros(6, dtype=torch.int32)
 
 
@@ -155,15 +156,16 @@ def _filter(cfg, inputs, accum, frame, plain):
                                     accum, frame)
         return filtered, weights, None
     with stage("k2_blockify"):
-        tmp = build_feature_blocks(cfg, inputs.normals, inputs.positions,
-                                   accum, frame)
+        tmp = (build_feature_blocks_reference if plain
+               else build_feature_blocks)(cfg, inputs.normals,
+                                          inputs.positions, accum, frame)
     with stage("k2_fitter"):
         weights, mins_maxs = fit_blocks(cfg, tmp, frame,
                                         impl="xla" if plain else None)
     with stage("k3_weighted_sum"):
-        filtered = weighted_sum(cfg, weights, mins_maxs, inputs.normals,
-                                inputs.positions, accum, frame,
-                                feature_blocks=tmp)
+        filtered = (weighted_sum_reference if plain else weighted_sum)(
+            cfg, weights, mins_maxs, inputs.normals, inputs.positions, accum,
+            frame, feature_blocks=tmp)
     return filtered, weights, mins_maxs
 
 
@@ -191,8 +193,9 @@ def denoise_frame(cfg, state, inputs: FrameInputs, prev_cam, pixel_offset,
     checking the kernels on the card).
 
     Each stage runs inside a profiler range under the JAX package's
-    scope name (:data:`~bmfr_tpu_torch.profiling.STAGES`): kernel H
-    inside ``warp_taps``, G inside ``k1_accumulate_noisy`` and F inside
+    scope name (:data:`~bmfr_tpu_torch.profiling.STAGES`): kernels H and
+    A or I inside ``warp_taps``, G inside ``k1_accumulate_noisy``, J
+    inside ``k2_blockify``, K inside ``k3_weighted_sum`` and F inside
     ``k5_taa``, so ``k4_accumulate_filtered`` and ``state_pack`` hold no
     work on the kernel path (the plain versions open them inside G's and
     F's ranges).

@@ -50,13 +50,15 @@ import torch
 
 from ..config import check_supported
 from ..ops import _lib
+from ..ops.blockify import build_feature_blocks
 from ..ops.fitter_direct import (fit_blocks_direct, fit_reconstruct_cholesky,
                                  fit_reconstruct_direct)
 from ..ops.fitter_pallas import fit_blocks_pallas
 from ..ops.reproject import noisy_tail, reproject_coords
 from ..ops.tail import filtered_tail
 from ..ops.warp import warp_rows
-from ..ops.warp_blend import warp_blend
+from ..ops.warp_blend import warp_blend, warp_blend_planes
+from ..ops.weighted_sum import weighted_sum
 from ..profiling import stage
 from .denoise import FrameInputs, PackedState, denoise_frame
 from .state import TemporalState
@@ -64,7 +66,8 @@ from .state import TemporalState
 #: the kernel wrappers whose launch counters a replay advances
 COUNTED = (warp_blend, fit_reconstruct_cholesky, fit_reconstruct_direct,
            fit_blocks_direct, fit_blocks_pallas, warp_rows, reproject_coords,
-           noisy_tail, filtered_tail)
+           noisy_tail, filtered_tail, warp_blend_planes,
+           build_feature_blocks, weighted_sum)
 
 # one capture at a time in the process: scenes streamed on several
 # threads each capture their own step

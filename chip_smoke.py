@@ -66,6 +66,22 @@ infinities in it, with each kernel's device ms, bound, wrapper and plain
 ms; every path, stream, staging, scenes, entry, sweep and oracle phase
 holds H, G and F to one launch a frame.
 
+``[default kernels]`` (after ``[tail kernels]``) holds the kernels that
+stand for the default path's stages XLA fuses in the TPU step, I
+(``warp_blend_planes``: the raw-plane tap warp + blend), J
+(``build_feature_blocks``: the feature-block store) and K
+(``weighted_sum``: the block reconstruction), to their plain versions at
+1280x720 on orbit frame 1 with the default path's state: I in each warp
+mode bit for bit (NaN where NaN), also on the NaN-laden field over a
+random state with NaN and infinite values; J bit for bit in each tmp
+dtype at three jitter frames; K within ``K_TOL`` of the products'
+magnitudes on the reused f32 blocks, with NaN positions, and on f16 tmp;
+with each kernel's device ms, bound, wrapper and plain ms, and for K
+``torch.einsum`` on the rescaled blocks as its library yardstick. The
+default path's phases (``[path default]``, stream, staging, scenes,
+sweep, oracle, ``[bench]``) hold I to a launch a frame with history and
+J and K to one a frame.
+
 The later slices' phases: ``[basis B]`` and ``[basis C]`` hold kernels B
 and C on feature bases of 4, 7, 10 (first order) and 16 columns (three
 cross terms registered with ``register_feature``, which the kernels read
@@ -148,7 +164,10 @@ from bmfr_tpu_torch.io.fixtures import synthetic_sequence
 from bmfr_tpu_torch.io.staging import STAGE_CODECS, stage_scene
 from bmfr_tpu_torch.metrics import psnr
 from bmfr_tpu_torch.ops import _lib
-from bmfr_tpu_torch.ops.blockify import STORAGE_DTYPES, build_feature_blocks
+from bmfr_tpu_torch.ops.blockify import (STORAGE_DTYPES, build_feature_blocks,
+                                         build_feature_blocks_reference,
+                                         unblockify_planes)
+from bmfr_tpu_torch.ops.fitter import highest_precision
 from bmfr_tpu_torch.ops.fitter import scale_blocks, storage_roundtrip
 from bmfr_tpu_torch.ops.fitter_direct import (
     basis_plan, fit_blocks_direct, fit_blocks_direct_reference,
@@ -165,7 +184,12 @@ from bmfr_tpu_torch.ops.tail import (filtered_tail, filtered_tail_loader,
 from bmfr_tpu_torch.ops.warp import (gather_taps, pack_pairs_bf16,
                                      pack_x_pairs_bf16, warp_rows,
                                      warp_rows_reference)
-from bmfr_tpu_torch.ops.warp_blend import warp_blend, warp_blend_reference
+from bmfr_tpu_torch.ops.warp_blend import (TAP_MODES, warp_blend,
+                                           warp_blend_planes,
+                                           warp_blend_planes_reference,
+                                           warp_blend_reference)
+from bmfr_tpu_torch.ops.weighted_sum import (block_basis, weighted_sum,
+                                             weighted_sum_reference)
 from bmfr_tpu_torch.pipeline.graph import CompiledStep
 from bmfr_tpu_torch.profile_stages import (eager_sequence,
                                            sequence_trace_report,
@@ -197,14 +221,16 @@ SCENE_LIMITS = dict(position_limit_squared=0.03, normal_limit_squared=0.5)
 #: the kernel each configuration of the fidelity sweep launches, by its
 #: letter (A warp_blend, B fit_reconstruct_cholesky, C
 #: fit_reconstruct_direct, D fit_blocks_pallas; "cholesky" fits its blocks
-#: with the plain Cholesky solve, as JAX's falls back to XLA), beside F
-#: filtered_tail, G noisy_tail and H reproject_coords, which every
-#: configuration launches once a frame
+#: with the plain Cholesky solve, as JAX's falls back to XLA; I
+#: warp_blend_planes on every warped frame of a raw-plane warp, J
+#: build_feature_blocks and K weighted_sum on every frame of the block
+#: path), beside F filtered_tail, G noisy_tail and H reproject_coords,
+#: which every configuration launches once a frame
 SWEEP_KERNELS = {
-    "default": "D", "cholesky": "", "tmp_f16": "D", "warp_packed": "D",
-    "warp_pallas": "AD", "flagship": "AC", "flagship_cholesky": "AB",
-    "flagship_f32res": "AC", "residual_bf16": "D", "no_taa": "D",
-    "first_order": "D"}
+    "default": "DIJK", "cholesky": "IJK", "tmp_f16": "DIJK",
+    "warp_packed": "DIJK", "warp_pallas": "ADJK", "flagship": "AC",
+    "flagship_cholesky": "AB", "flagship_f32res": "AC",
+    "residual_bf16": "DIJK", "no_taa": "DIJK", "first_order": "DIJK"}
 #: [fidelity r5]: the JAX package's TPU record, row by row: noisy_psnr to
 #: 1e-9 dB; psnr_mean/first/last (dB) and ssim_mean to these, per config
 R5_NOISY_TOL = 1e-9
@@ -223,6 +249,20 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 #: kernels H, G and F, launched once a frame on every path
 TAILS = {"reproject_coords": reproject_coords, "noisy_tail": noisy_tail,
          "filtered_tail": filtered_tail}
+
+
+#: kernels I, J and K, launched on the default path (every block path
+#: with a raw-plane warp): I on every frame with history, J and K on every
+#: frame; their launches over the FRAMES frames of a sequence
+DEFAULT_KERNELS = {"warp_blend_planes": warp_blend_planes,
+                   "build_feature_blocks": build_feature_blocks,
+                   "weighted_sum": weighted_sum}
+DEFAULT_LAUNCHES = {"warp_blend_planes": FRAMES - 1,
+                    "build_feature_blocks": FRAMES, "weighted_sum": FRAMES}
+#: kernel K against its plain version (a batched product in another
+#: summation order): |kernel - plain| <= K_TOL * sum_f |basis_f w_f| per
+#: pixel, what an f32 10-term dot product's rounding allows either way
+K_TOL = 2e-6
 
 
 def with_tails(counters, expected, frames):
@@ -589,6 +629,168 @@ def tail_phase(flagship, exact, inputs, cams, offs, field):
     return errs, ms, dev_ms, bounds
 
 
+def check_bits(name, label, got, want):
+    """A kernel of I and J against its plain version: bit for bit where
+    not NaN, NaN where NaN. Returns the largest |difference| (0 when
+    equal)."""
+    torch.cuda.synchronize()
+    ints = {4: torch.int32, 2: torch.int16}[got.element_size()]
+    nan = got.float().isnan() & want.float().isnan()
+    differ = int((~((got.view(ints) == want.view(ints)) | nan)).sum())
+    fin = torch.isfinite(got.float()) & torch.isfinite(want.float())
+    err = float(torch.where(fin, (got.float() - want.float()).abs(),
+                            0.0).max())
+    print(f"[{name}] {label}: {differ} of {got.numel()} values differ from "
+          f"the plain version's in their bits (NaN in both {int(nan.sum())})")
+    require(differ == 0, f"{name} {label}: {differ} values differ")
+    return err
+
+
+def check_reconstruction(label, cfg, w, mm, planes, frame, blocks):
+    """Kernel K against its plain version: NaN where NaN, elsewhere within
+    ``K_TOL`` of the products' magnitudes. Returns the largest |err|."""
+    n, pos, accum = planes
+    args = (cfg, w, mm, n, pos, accum, frame)
+    got = weighted_sum(*args, feature_blocks=blocks)
+    want = weighted_sum_reference(*args, feature_blocks=blocks)
+    basis = block_basis(cfg, mm, n, pos, frame, blocks)
+    with highest_precision():
+        mag = unblockify_planes(
+            cfg, torch.einsum("bfe,bfc->bce", basis.abs(), w.abs()), frame)
+    torch.cuda.synchronize()
+    nan = want.isnan()
+    same_nan = bool(torch.equal(got.isnan(), nan))
+    diff = torch.where(nan, 0.0, (got - want).abs())
+    bad = int((diff > K_TOL * torch.where(nan, 0.0, mag)).sum())
+    err = float(diff.max())
+    rel = float(torch.where(nan, 0.0, diff / mag.clamp_min(1e-30)).max())
+    print(f"[weighted_sum] {label}: max |err| {err:.3e}, max |err| over the "
+          f"products' magnitudes {rel:.3e} (tolerance {K_TOL:g}, off: {bad}),"
+          f" NaN pixels {int(nan.sum())} (same in both: {same_nan})")
+    require(same_nan and bad == 0, f"weighted_sum {label}: NaN equal "
+            f"{same_nan}, {bad} values off tolerance")
+    return err
+
+
+def default_kernels_phase(exact, inputs, cams, offs, field):
+    """[default kernels]: kernels I (warp_blend_planes), J
+    (build_feature_blocks) and K (weighted_sum), the default path's stages
+    XLA fuses in the TPU step, against their plain versions at 1280x720 on
+    the orbit scene's frame 1 with the default path's state after frame
+    0: I in each warp mode (and in float32 on ``field``, a reprojection
+    with NaN and infinities, over a random state with NaN and infinite
+    values) and J in each tmp dtype, bit for bit; K within ``K_TOL`` on
+    the reused f32 blocks, with NaN positions, and on f16 tmp (raw
+    features, NaN kept). Returns ``(errs, ms, dev_ms, bounds, library)``
+    by letter: the largest |err|, (wrapper, plain) ms per call, device ms
+    per call, the bound, and K's library yardstick (``torch.einsum`` on
+    the rescaled blocks)."""
+    t0 = time.perf_counter()
+    dev = inputs.noisy.device
+    n_px = HEIGHT * WIDTH
+    errs = dict.fromkeys("IJK", 0.0)
+    ms, dev_ms, bounds = {}, {}, {}
+    st0, _ = bt.denoise_frame(exact, bt.zero_state(exact, dev),
+                              frame_of(inputs, 0), cams[0], offs[0], 0)
+    cur = frame_of(inputs, 1)
+    pp = reproject_coords(exact, cur.positions, cams[0], offs[1])
+    pfx, pfy = pp
+
+    # ---- I ----
+    rng = np.random.default_rng(14)
+    rs = torch.from_numpy(rng.standard_normal((15, HEIGHT, WIDTH)).astype(
+        np.float32)).to(dev)
+    flat = rs.view(-1)
+    flat[::331], flat[7::503], flat[11::709] = (
+        float("nan"), float("inf"), -float("inf"))
+    rstate = bt.TemporalState(
+        positions=rs[0:3], normals=rs[3:6], noisy=rs[6:9],
+        spp=torch.from_numpy(rng.integers(0, 256, (HEIGHT, WIDTH)).astype(
+            np.uint8)).to(dev), out=rs[9:12], result=rs[12:15])
+    for mode in TAP_MODES:
+        cases = [("orbit", st0, pfx, pfy), ("field, random state", rstate,
+                                              field[0], field[1])]
+        for label, st, fx, fy in cases:
+            args = (exact.replace(warp_mode=mode), st, cur.positions,
+                    cur.normals, fx, fy, mode)
+            errs["I"] = max(errs["I"], check_bits(
+                "warp_blend_planes", f"{mode} {label}",
+                warp_blend_planes(*args), warp_blend_planes_reference(*args)))
+    args_i = (exact, st0, cur.positions, cur.normals, pfx, pfy, "float32")
+    ms["I"] = (cuda_ms(lambda: warp_blend_planes(*args_i), 50),
+               cuda_ms(lambda: warp_blend_planes_reference(*args_i), 10))
+    dev_ms["I"] = kernel_device_ms(lambda: warp_blend_planes(*args_i),
+                                   "warp_taps_kernel")
+    for mode in ("packed_bf16", "packed_x_bf16"):
+        args_m = args_i[:-1] + (mode,)
+        dev_ms[f"I {mode}"] = kernel_device_ms(
+            lambda: warp_blend_planes(*args_m), "warp_taps_kernel")
+    # in: the 16 state channels (15 f32 and the u8 spp), positions,
+    # normals, pfx, pfy; out: 13 planes; ~200 operations per pixel
+    bounds["I"] = bound(nbytes(*st0, cur.positions, cur.normals, pfx, pfy)
+                        + 13 * 4 * n_px, 200 * n_px)
+
+    # ---- J ----
+    planes = warp_blend_planes(*args_i)
+    accum = noisy_tail(exact, cur.noisy, pp, planes, cur.positions,
+                       cur.normals, 1)["accum"]
+    geo = (cur.normals, cur.positions, accum)
+    for dtype in STORAGE_DTYPES:
+        jcfg = exact.replace(tmp_data_dtype=dtype)
+        for f in (1, 6, 12):
+            errs["J"] = max(errs["J"], check_bits(
+                "build_feature_blocks", f"{dtype} frame {f}",
+                build_feature_blocks(jcfg, *geo, f),
+                build_feature_blocks_reference(jcfg, *geo, f)))
+        if dtype != "float32":
+            dev_ms[f"J {dtype}"] = kernel_device_ms(
+                lambda: build_feature_blocks(jcfg, *geo, 1),
+                "feature_blocks_kernel")
+    ms["J"] = (cuda_ms(lambda: build_feature_blocks(exact, *geo, 1), 50),
+               cuda_ms(lambda: build_feature_blocks_reference(exact, *geo, 1),
+                       10))
+    dev_ms["J"] = kernel_device_ms(lambda: build_feature_blocks(
+        exact, *geo, 1), "feature_blocks_kernel")
+    tmp = build_feature_blocks(exact, *geo, 1)
+    # in: the 9 raw planes; out: tmp; ~4 operations per stored value
+    bounds["J"] = bound(nbytes(*geo, tmp), 4 * tmp.numel())
+
+    # ---- K ----
+    w, mm = fit_blocks_pallas(exact, tmp, 1)
+    pos_nan = cur.positions.clone()
+    pos_nan[0, HEIGHT // 2, WIDTH // 3:WIDTH // 3 + 60] = float("nan")
+    pos_nan[2, 10:40, 7] = float("nan")
+    geo_nan = (cur.normals, pos_nan, accum)
+    f16 = exact.replace(tmp_data_dtype="float16")
+    for label, kcfg, g, blocks in (
+            ("f32 tmp, its blocks reused", exact, geo, tmp),
+            ("f32 tmp, NaN positions", exact, geo_nan,
+             build_feature_blocks(exact, *geo_nan, 1)),
+            ("f16 tmp, NaN positions (raw features)", f16, geo_nan,
+             build_feature_blocks(f16, *geo_nan, 1))):
+        errs["K"] = max(errs["K"], check_reconstruction(
+            label, kcfg, w, mm, g, 1, blocks))
+    args_k = (exact, w, mm, *geo, 1)
+    ms["K"] = (cuda_ms(lambda: weighted_sum(*args_k, feature_blocks=tmp),
+                       50),
+               cuda_ms(lambda: weighted_sum_reference(
+                   *args_k, feature_blocks=tmp), 10))
+    dev_ms["K"] = kernel_device_ms(lambda: weighted_sum(
+        *args_k, feature_blocks=tmp), "block_reconstruct_kernel")
+    basis = block_basis(exact, mm, cur.normals, cur.positions, 1, tmp)
+    with highest_precision():
+        library = cuda_ms(lambda: torch.einsum("bfe,bfc->bce", basis, w), 50)
+    F, lo = exact.feature_count, exact.features_not_scaled_count
+    # in: the 6 geometry planes of the default basis, weights, mins/maxs;
+    # out: 3 planes; per pixel 2 operations a product, 4 a rescale
+    bounds["K"] = bound(nbytes(cur.normals, cur.positions, w, mm)
+                        + 3 * 4 * n_px, (6 * F + 4 * (F - lo)) * n_px)
+    print(f"[library] torch.einsum('bfe,bfc->bce') on kernel K's rescaled "
+          f"blocks (f32, highest precision): {library:.4f} ms per call")
+    print(f"[default kernels] the phase took {time.perf_counter() - t0:.1f} s")
+    return errs, ms, dev_ms, bounds, library
+
+
 def steady_frames(cfg, inputs, cams, offs, mode):
     """Run frame 0 eagerly; return a closure running frames 1..15 on that
     state between two CUDA events, the events and the compiled step.
@@ -792,8 +994,10 @@ def _stream_phase(root, sc, inputs, cams, offs, flagship, exact, dev,
               "fit_reconstruct_cholesky": fit_reconstruct_cholesky},
              {"warp_blend": FRAMES - 1, "fit_reconstruct_cholesky": FRAMES}),
             ("default", exact,
-             {"fit_blocks_pallas": fit_blocks_pallas, "warp_rows": warp_rows},
-             {"fit_blocks_pallas": FRAMES, "warp_rows": 0})):
+             {"fit_blocks_pallas": fit_blocks_pallas, "warp_rows": warp_rows,
+              **DEFAULT_KERNELS},
+             {"fit_blocks_pallas": FRAMES, "warp_rows": 0,
+              **DEFAULT_LAUNCHES})):
         counters, expected = with_tails(counters, expected, FRAMES)
         for fn in counters.values():
             fn.launches = 0
@@ -997,8 +1201,10 @@ def _staging_phase(root, sc, flagship, exact, dev, zip_timing):
               "fit_reconstruct_cholesky": fit_reconstruct_cholesky},
              {"warp_blend": FRAMES - 1, "fit_reconstruct_cholesky": FRAMES}),
             ("default", exact,
-             {"fit_blocks_pallas": fit_blocks_pallas, "warp_rows": warp_rows},
-             {"fit_blocks_pallas": FRAMES, "warp_rows": 0})):
+             {"fit_blocks_pallas": fit_blocks_pallas, "warp_rows": warp_rows,
+              **DEFAULT_KERNELS},
+             {"fit_blocks_pallas": FRAMES, "warp_rows": 0,
+              **DEFAULT_LAUNCHES})):
         counters, want = with_tails(counters, want, FRAMES)
         for fn in counters.values():
             fn.launches = 0
@@ -1114,7 +1320,8 @@ def sweep_counters():
     return {"A": warp_blend, "B": fit_reconstruct_cholesky,
             "C": fit_reconstruct_direct, "D": fit_blocks_pallas,
             "E": warp_rows, "F": filtered_tail, "G": noisy_tail,
-            "H": reproject_coords}
+            "H": reproject_coords, "I": warp_blend_planes,
+            "J": build_feature_blocks, "K": weighted_sum}
 
 
 def counted_sweep(label, scenes, base, dev):
@@ -1134,7 +1341,7 @@ def counted_sweep(label, scenes, base, dev):
         T = sc["noisy"].shape[0]
         for kernels in SWEEP_KERNELS.values():
             for k in kernels + "FGH":
-                expected[k] += T - 1 if k == "A" else T
+                expected[k] += T - 1 if k in "AI" else T
     print(f"[{label}] run_sweep {len(rows)} rows on the card: {sweep_s:.1f} s"
           f"; launches {launches}")
     require(len(rows) == len(scenes) * len(SWEEP_KERNELS),
@@ -1242,7 +1449,8 @@ def oracle_phase(dev):
         oracle_s = time.perf_counter() - t0
         for label, pcfg, expected in (
                 ("default", cfg, dict(D=ORACLE_T, F=ORACLE_T, G=ORACLE_T,
-                                      H=ORACLE_T)),
+                                      H=ORACLE_T, I=ORACLE_T - 1,
+                                      J=ORACLE_T, K=ORACLE_T)),
                 ("flagship", cfg.replace(**bt.FLAGSHIP),
                  dict(A=ORACLE_T - 1, B=ORACLE_T, F=ORACLE_T, G=ORACLE_T,
                       H=ORACLE_T))):
@@ -1647,8 +1855,9 @@ def scenes_phase(sc, flagship, exact, dev):
              {"warp_blend": warp_blend,
               "fit_reconstruct_cholesky": fit_reconstruct_cholesky},
              {"warp_blend": FRAMES - 1, "fit_reconstruct_cholesky": FRAMES}),
-            ("default", exact, {"fit_blocks_pallas": fit_blocks_pallas},
-             {"fit_blocks_pallas": FRAMES})):
+            ("default", exact, {"fit_blocks_pallas": fit_blocks_pallas,
+                                **DEFAULT_KERNELS},
+             {"fit_blocks_pallas": FRAMES, **DEFAULT_LAUNCHES})):
         refs = torch.stack([bt.denoise_sequence(
             cfg, bt.FrameInputs(*(x[s] for x in inputs)), cams[s], offs[s])
             for s in range(len(scenes))])
@@ -2056,6 +2265,14 @@ def main():
     ms.update(t_ms)
     dev_ms.update(t_dev)
     bounds.update(t_bounds)
+
+    # ---- kernels I, J and K vs plain ----
+    d_errs, d_ms, d_dev, d_bounds, k_library_ms = default_kernels_phase(
+        exact, inputs, cams, offs, field)
+    errs.update(d_errs)
+    ms.update(d_ms)
+    dev_ms.update(d_dev)
+    bounds.update(d_bounds)
     print(f"[library] torch.linalg.lstsq on kernel D's f32 system "
           f"(block_edge 32, frame 5): {library_ms:.4f} ms per call, "
           f"weights' relative norm from kernel D {lib_rel:.3e}")
@@ -2084,8 +2301,9 @@ def main():
         {"warp_blend": FRAMES - 1, "fit_reconstruct_cholesky": FRAMES})
     paths["default"] = run_path(
         "default", exact, sc, inputs, cams, offs,
-        {"fit_blocks_pallas": fit_blocks_pallas, "warp_rows": warp_rows},
-        {"fit_blocks_pallas": FRAMES, "warp_rows": 0})
+        {"fit_blocks_pallas": fit_blocks_pallas, "warp_rows": warp_rows,
+         **DEFAULT_KERNELS},
+        {"fit_blocks_pallas": FRAMES, "warp_rows": 0, **DEFAULT_LAUNCHES})
     paths["householder_flagship"] = run_path(
         "householder_flagship", hh_flagship, sc, inputs, cams, offs,
         {"warp_blend": warp_blend,
@@ -2191,24 +2409,27 @@ def main():
         "B": "none: no single call computes the Gram sums, the Cholesky "
              "solve and the reconstruction",
         "E": "none: no single call computes the two clipped row loads",
-        **dict.fromkeys("FGH", "none: no single call computes the fused "
-                               "stage")}
+        **dict.fromkeys("FGHIJ", "none: no single call computes the fused "
+                                 "stage")}
+    libraries = {"C": (library_ms, "torch.linalg.lstsq"),
+                 "D": (library_ms, "torch.linalg.lstsq"),
+                 "K": (k_library_ms, "torch.einsum('bfe,bfc->bce') on the "
+                                     "rescaled blocks")}
 
     def entry(key, name, source, replaces, launches, bench_run):
         b_ms, by = bounds[key]
-        lib = library_ms if key in ("C", "D") else None
+        lib, lib_name = libraries.get(key, (None, no_library.get(key)))
         wrapper = {"A": "warp_blend", "B": "fit_reconstruct_cholesky",
                    "C": "fit_reconstruct_direct", "D": "fit_blocks_pallas",
                    "E": "warp_rows", "F": "filtered_tail", "G": "noisy_tail",
-                   "H": "reproject_coords"}[key]
+                   "H": "reproject_coords", "I": "warp_blend_planes",
+                   "J": "build_feature_blocks", "K": "weighted_sum"}[key]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=launches,
                     bench_launches=bench_runs[bench_run]["launches"][wrapper],
                     max_abs_err=errs[key], ms=ms[key][0],
                     plain_ms=ms[key][1], bound_ms=b_ms, bound_by=by,
-                    library_ms=lib, device_ms=dev_ms[key],
-                    library=("torch.linalg.lstsq" if lib is not None
-                             else no_library[key]))
+                    library_ms=lib, device_ms=dev_ms[key], library=lib_name)
 
     def basis_entry(key, name, source, replaces, launches):
         # the basis kernel at its main path's basis, f32 tmp; max |err|
@@ -2260,6 +2481,20 @@ def main():
               "bmfr_tpu/ops/reproject.py:22, fused by XLA",
               paths["flagship"]["launches"]["reproject_coords"],
               "flagship orbit (command)"),
+        entry("I", "warp_blend_planes", "bmfr_tpu_torch/csrc/warp_taps.cu",
+              "bmfr_tpu/pipeline/denoise.py:115 (stack_state) + "
+              "bmfr_tpu/ops/warp.py:65 (gather_taps) + the tap branches "
+              "bmfr_tpu/ops/reproject.py:78, accumulate.py:32, taa.py:72, "
+              "fused by XLA",
+              paths["default"]["launches"]["warp_blend_planes"], "default"),
+        entry("J", "build_feature_blocks",
+              "bmfr_tpu_torch/csrc/feature_blocks.cu",
+              "bmfr_tpu/ops/blockify.py:181, fused by XLA",
+              paths["default"]["launches"]["build_feature_blocks"],
+              "default"),
+        entry("K", "weighted_sum", "bmfr_tpu_torch/csrc/block_reconstruct.cu",
+              "bmfr_tpu/ops/weighted_sum.py:27, fused by XLA",
+              paths["default"]["launches"]["weighted_sum"], "default"),
         basis_entry("B first_order float32",
                     "fit_reconstruct_cholesky (any basis)",
                     "bmfr_tpu_torch/csrc/fitter_chol_basis.cu",

@@ -182,10 +182,15 @@ def test_expected_launches():
     assert bench.expected_launches(
         flagship.replace(solver="householder"), 60) == {
         **every_path, "warp_blend": 59, "fit_reconstruct_direct": 60}
+    # the default path: the raw-plane tap warp (I) on every frame with
+    # history, the feature-block store (J) and the block reconstruction
+    # (K) around the block fitter (D) on every frame
+    block_path = {**every_path, "warp_blend_planes": 59,
+                  "build_feature_blocks": 60, "weighted_sum": 60}
     assert bench.expected_launches(bt.BMFRConfig(), 60) == {
-        **every_path, "fit_blocks_pallas": 60}
+        **block_path, "fit_blocks_pallas": 60}
     assert bench.expected_launches(bt.BMFRConfig(fitter_impl="xla"),
-                                   60) == every_path
+                                   60) == block_path
 
 
 def test_no_card_exits_nonzero(clean_env, capsys):

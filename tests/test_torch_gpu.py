@@ -20,7 +20,8 @@ import bmfr_tpu_torch as bt
 from bmfr_tpu_torch.io.fixtures import synthetic_sequence
 from bmfr_tpu_torch.metrics import psnr
 from bmfr_tpu_torch.ops import fitter, fitter_direct
-from bmfr_tpu_torch.ops.blockify import STORAGE_DTYPES, jitter_offset
+from bmfr_tpu_torch.ops.blockify import (STORAGE_DTYPES,
+                                         build_feature_blocks, jitter_offset)
 from bmfr_tpu_torch.ops.fitter_direct import (
     fit_reconstruct_cholesky, fit_reconstruct_cholesky_reference)
 from bmfr_tpu_torch.ops.fitter_pallas import (fit_blocks_pallas,
@@ -30,7 +31,9 @@ from bmfr_tpu_torch.ops.reproject import noisy_tail, reproject_coords
 from bmfr_tpu_torch.ops.tail import filtered_tail
 from bmfr_tpu_torch.ops.warp import (add_wrap, pack_pairs_bf16,
                                      pack_x_pairs_bf16, warp_rows)
-from bmfr_tpu_torch.ops.warp_blend import warp_blend, warp_blend_reference
+from bmfr_tpu_torch.ops.warp_blend import (warp_blend, warp_blend_planes,
+                                           warp_blend_reference)
+from bmfr_tpu_torch.ops.weighted_sum import weighted_sum
 
 pytestmark = pytest.mark.gpu
 
@@ -612,7 +615,10 @@ def test_compiled_step_without_donation_leaves_states_intact(cuda, carry):
     ("flagship", {"warp_blend": warp_blend,
                   "fit_reconstruct_cholesky": fit_reconstruct_cholesky}),
     ("default", {"fit_blocks_pallas": fit_blocks_pallas,
-                 "warp_rows": warp_rows}),
+                 "warp_rows": warp_rows,
+                 "warp_blend_planes": warp_blend_planes,
+                 "build_feature_blocks": build_feature_blocks,
+                 "weighted_sum": weighted_sum}),
     ("householder_flagship", {
         "warp_blend": warp_blend,
         "fit_reconstruct_direct": fitter_direct.fit_reconstruct_direct})])
@@ -628,7 +634,8 @@ def test_replays_advance_the_launch_counters(cuda, path, counters):
     warped = 0 if path == "default" else T - 1
     expected = {"warp_blend": warped, "warp_rows": 0,
                 "fit_reconstruct_cholesky": T, "fit_reconstruct_direct": T,
-                "fit_blocks_pallas": T}
+                "fit_blocks_pallas": T, "warp_blend_planes": T - 1,
+                "build_feature_blocks": T, "weighted_sum": T}
     compiled_step.cache_clear()
     for _ in range(2):
         for fn in counters.values():
@@ -1322,3 +1329,224 @@ def test_two_threads_replay_on_one_default_stream(cuda):
     assert not errors, errors
     bad = [key for key, got in results.items() if not torch.equal(got, want)]
     assert not bad, f"rounds that differ from one thread's: {bad}"
+
+
+# ---- kernels I, J and K (the default path's stages XLA fuses in the TPU
+# step) ----
+
+#: kernel K against its plain version (a batched product in another
+#: summation order): |kernel - plain| <= K_TOL * sum_f |basis_f w_f|, the
+#: rounding an f32 10-term dot product allows either way
+K_TOL = 2e-6
+I_SHAPES = [(100, 332), (720, 1280), (45, 1), (2, 3)]
+
+
+def raw_state(H, W, dev, seed):
+    """A TemporalState of random planes with NaN and infinities sprinkled
+    over them, and an spp of 0..255."""
+    rng = np.random.default_rng(seed)
+    p = with_extremes(torch.from_numpy(rng.standard_normal(
+        (15, H, W)).astype(np.float32)).to(dev), seed)
+    spp = torch.from_numpy(rng.integers(0, 256, (H, W)).astype(
+        np.uint8)).to(dev)
+    return bt.TemporalState(positions=p[0:3], normals=p[3:6],
+                            noisy=p[6:9], spp=spp, out=p[9:12],
+                            result=p[12:15])
+
+
+def tap_field(H, W, dev):
+    """Reprojected coordinates through every edge of the screen, fully
+    off it, and NaN, +-inf and +-2**31 among them."""
+    yy = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(W, device=dev, dtype=torch.float32)[None, :]
+    pfx = xx * (1.0 + 3.0 / W) - 1.6 + yy * (1.5 / H)
+    pfy = yy * 1.01 + 2.3 - xx * (2.0 / W)
+    return (with_extremes(pfx.contiguous(), 3),
+            with_extremes(pfy.contiguous(), 4))
+
+
+@pytest.mark.parametrize("H,W", I_SHAPES)
+@pytest.mark.parametrize("mode", ["float32", "packed_bf16", "packed_x_bf16"])
+def test_warp_taps_kernel_is_bit_equal(cuda, H, W, mode):
+    """Kernel I against its plain version: the 13 planes equal as values,
+    NaN where NaN, on a field with off-screen, NaN, infinite and saturated
+    coordinates and a state with NaN and infinite values."""
+    from bmfr_tpu_torch.ops.warp_blend import warp_blend_planes_reference
+
+    cfg = scene_cfg(H, W).replace(warp_mode=mode, fitter_impl="auto",
+                                  solver="householder")
+    state = raw_state(H, W, cuda, H + W)
+    cur = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (6, H, W)).astype(np.float32)).to(cuda)
+    pfx, pfy = tap_field(H, W, cuda)
+    args = (cfg, state, cur[0:3], cur[3:6], pfx, pfy, mode)
+    n0 = warp_blend_planes.launches
+    got = warp_blend_planes(*args)
+    assert warp_blend_planes.launches == n0 + 1
+    want = warp_blend_planes_reference(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (13, H, W)
+    assert same_values(got, want)
+    if H * W > 100:
+        assert bool(got.isnan().any())
+
+
+def feature_planes_on_card(H, W, dev, seed):
+    """normals, positions and accumulated colour with NaN, infinities and
+    values beyond f16's range."""
+    p = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (9, H, W)).astype(np.float32) * 300.0).to(dev)
+    return with_extremes(p, seed).split(3)
+
+
+@pytest.mark.parametrize("block_edge", [8, 24, 32, 64])
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+def test_feature_blocks_kernel_is_bit_equal(cuda, dtype, block_edge):
+    """Kernel J against its plain version bit for bit at every one of the
+    16 jitter frames, each tmp dtype, block edges up to 64, the frame read
+    from a host int and from a tensor on the card."""
+    from bmfr_tpu_torch.ops.blockify import build_feature_blocks_reference
+
+    H, W = 100, 332
+    cfg = scene_cfg(H, W).replace(tmp_data_dtype=dtype,
+                                  block_edge=block_edge, warp_mode="float32",
+                                  fitter_impl="auto", solver="householder")
+    planes = feature_planes_on_card(H, W, cuda, block_edge)
+    n0 = build_feature_blocks.launches
+    for frame in range(16):
+        f = (torch.tensor(frame, dtype=torch.int32, device=cuda)
+             if frame % 2 else frame)
+        got = build_feature_blocks(cfg, *planes, f)
+        want = build_feature_blocks_reference(cfg, *planes, frame)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got.view(torch.int16 if dtype != "float32"
+                                    else torch.int32),
+                           want.view(torch.int16 if dtype != "float32"
+                                     else torch.int32)), frame
+    assert build_feature_blocks.launches == n0 + 16
+
+
+def test_feature_blocks_kernel_registered_feature(cuda, cross_features):
+    """Kernel J on a basis with registered features (extra planes) and
+    the built-in ones, each tmp dtype, bit for bit."""
+    from bmfr_tpu_torch.ops.blockify import build_feature_blocks_reference
+
+    H, W = 100, 332
+    planes = feature_planes_on_card(H, W, cuda, 5)
+    for dtype in ("float32", "float16", "bfloat16"):
+        cfg = scene_cfg(H, W).replace(tmp_data_dtype=dtype,
+                                      warp_mode="float32",
+                                      fitter_impl="auto",
+                                      **BASES["16-columns"])
+        got = build_feature_blocks(cfg, *planes, 3)
+        want = build_feature_blocks_reference(cfg, *planes, 3)
+        torch.cuda.synchronize()
+        assert got.shape[1] == 16
+        assert torch.equal(got.float(), want.float()), dtype
+
+
+def reconstruction_bound(cfg, weights, mins_maxs, planes, frame, tmp):
+    """K_TOL times the sum of the products' magnitudes, per pixel."""
+    from bmfr_tpu_torch.ops.blockify import unblockify_planes
+    from bmfr_tpu_torch.ops.weighted_sum import block_basis
+
+    basis = block_basis(cfg, mins_maxs, planes[0], planes[1], frame, tmp)
+    with fitter.highest_precision():
+        mag = torch.einsum("bfe,bfc->bce", basis.abs(), weights.abs())
+    return K_TOL * unblockify_planes(cfg, mag, frame)
+
+
+@pytest.mark.parametrize("block_edge", [16, 32])
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
+def test_block_reconstruct_kernel_within_tolerance(cuda, dtype, block_edge):
+    """Kernel K against its plain version within K_TOL of the products'
+    magnitudes, NaN where NaN: NaN positions turn into 0 where the plain
+    version reads the f32 blocks and stay NaN on f16 tmp (and without the
+    blocks)."""
+    from bmfr_tpu_torch.ops.weighted_sum import weighted_sum_reference
+
+    H, W = 100, 332
+    cfg = scene_cfg(H, W).replace(tmp_data_dtype=dtype,
+                                  block_edge=block_edge, warp_mode="float32",
+                                  fitter_impl="auto", solver="householder")
+    rng = np.random.default_rng(block_edge)
+    n, pos, acc = (t.contiguous() for t in torch.from_numpy(
+        rng.standard_normal((9, H, W)).astype(np.float32)).to(cuda).split(3))
+    pos[0, 40, 100:130] = float("nan")
+    frame = 11
+    tmp = build_feature_blocks(cfg, n, pos, acc, frame)
+    w, mm = fit_blocks_pallas(cfg, tmp, frame)
+    for blocks in (tmp, None):
+        args = (cfg, w, mm, n, pos, acc, frame)
+        n0 = weighted_sum.launches
+        got = weighted_sum(*args, feature_blocks=blocks)
+        assert weighted_sum.launches == n0 + 1
+        want = weighted_sum_reference(*args, feature_blocks=blocks)
+        bound = reconstruction_bound(cfg, w, mm, (n, pos), frame, blocks)
+        torch.cuda.synchronize()
+        nan = want.isnan()
+        assert torch.equal(got.isnan(), nan)
+        assert bool(nan.any()) == (blocks is None or dtype != "float32")
+        assert bool(((got - want).abs() <= bound)[~nan].all())
+    cfg_skip = cfg.replace(skip_fitting=True)
+    n0 = weighted_sum.launches
+    assert weighted_sum(cfg_skip, w, mm, n, pos, acc, frame) is acc
+    assert weighted_sum.launches == n0
+
+
+@pytest.mark.parametrize("variant", [
+    dict(), dict(warp_mode="packed_bf16"),
+    dict(warp_mode="packed_x_bf16", tmp_data_dtype="float16"),
+    dict(fitter_impl="xla", tmp_data_dtype="bfloat16"),
+    dict(solver="cholesky", block_edge=16)],
+    ids=["default", "packed_bf16", "packed_x_f16", "xla_bf16",
+         "cholesky_be16"])
+def test_default_kernels_on_the_paths(cuda, variant):
+    """The block paths through denoise_sequence: launches as
+    bench.expected_launches says (I on every frame with history, J and K
+    on every frame), the compiled frames equal the eager step bit for bit,
+    every frame >= 60 dB against plain=True, and plain=True launches none
+    of I, J and K."""
+    from bmfr_tpu_torch import bench
+
+    H, W, T = 48, 160, 5
+    cfg = path_cfg("default", H, W).replace(**variant)
+    inputs, cams, offs = scene(H, W, cuda, frames=T)
+    for fn in bench.COUNTERS.values():
+        fn.launches = 0
+    out = bt.denoise_sequence(cfg, inputs, cams, offs)
+    got = {k: fn.launches for k, fn in bench.COUNTERS.items()}
+    assert got == bench.expected_launches(cfg, T)
+    eager, _ = eager_run(cfg, inputs, cams, offs, bt.zero_state(cfg, cuda))
+    assert torch.equal(out, eager)
+    for fn in bench.COUNTERS.values():
+        fn.launches = 0
+    plain = bt.denoise_sequence(cfg, inputs, cams, offs, plain=True)
+    for k in ("warp_blend_planes", "build_feature_blocks", "weighted_sum"):
+        assert bench.COUNTERS[k].launches == 0
+    for t in range(T):
+        assert psnr(out[t].cpu().numpy(), plain[t].cpu().numpy()) >= 60.0
+
+
+@pytest.mark.parametrize("H,W", [(100, 332)])
+def test_warp_blend_kernel_wraps_at_int_max(cuda, H, W):
+    """Kernel A on tap_blend.cuh's taps: bit for bit as its plain version
+    (NaN where NaN) on a field with NaN, infinite and saturated
+    coordinates over a packed state with NaN and infinite values, where
+    iy + 1 and ix + 1 wrap at INT_MAX to row and column 0."""
+    cfg = scene_cfg(H, W)
+    state = raw_state(H, W, cuda, 7)
+    src8 = pack_pairs_bf16([*state.positions, *state.normals, *state.noisy,
+                            state.spp.float(), *state.out, *state.result])
+    cur = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (6, H, W)).astype(np.float32)).to(cuda)
+    pfx, pfy = tap_field(H, W, cuda)
+    pfx[0, :3] = pfy[1, :3] = torch.tensor([float("inf"), 2.0**31, 3e9],
+                                           device=cuda)
+    args = (cfg, src8, cur[0:3], cur[3:6], pfx, pfy)
+    got = warp_blend(*args)
+    want = warp_blend_reference(*args)
+    torch.cuda.synchronize()
+    assert bool(got.isnan().any())
+    assert same_values(got, want)
