@@ -91,8 +91,9 @@ _SIGNATURES = {
     # out, frame, H, W, block_edge, blocks_x, n_blocks, mode, stream
     "bmfr_feature_blocks": (_P, _P, _I, _P, _P, _P) + (_I,) * 6 + (_P,),
     # planes, ops, F, lo, weights, mins_maxs, out, frame, H, W,
-    # block_edge, blocks_x, sanitize, stream
-    "bmfr_block_reconstruct": (_P, _P, _I, _I) + (_P,) * 4 + (_I,) * 5 + (
+    # block_edge, blocks_x, sanitize, default_basis, tiles_x, tiles_y,
+    # smem, stream
+    "bmfr_block_reconstruct": (_P, _P, _I, _I) + (_P,) * 4 + (_I,) * 9 + (
         _P,),
 }
 

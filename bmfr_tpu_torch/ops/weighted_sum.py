@@ -5,11 +5,15 @@
 what XLA fuses on the TPU out of ``weighted_sum``
 (``bmfr_tpu/ops/weighted_sum.py:27``): per image pixel its block under
 the inverse jitter, the rescale, the dot product and the clamp in one
-pass, with no block-layout intermediate."""
+pass, with no block-layout intermediate: one CTA per 32 x 32 tile of the
+margins grid (one block at ``block_edge`` 32), launched as
+:func:`reconstruct_geometry` says."""
 
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -18,6 +22,42 @@ from . import _lib
 from .blockify import blockify_planes, jitter_offset, unblockify_planes
 from .fitter import highest_precision, scale_with_mins_maxs
 from .frame import frame_tensor
+
+
+#: kernel K's CTA (``csrc/block_reconstruct.cu``): a TILE x TILE tile of
+#: the margins grid, THREADS threads, each one column of the tile and a
+#: band of BAND rows
+TILE, BAND = 32, 8
+THREADS = TILE * (TILE // BAND)
+
+
+class ReconstructGeometry(NamedTuple):
+    """Kernel K's launch: the grid of tiles over the margins grid, the
+    shared memory that holds the (min, d) pairs and weights of the most
+    blocks one tile touches (bytes), and whether the table is the default
+    basis' (its values in registers, 6 plane loads a pixel)."""
+    tiles_x: int
+    tiles_y: int
+    smem: int
+    default_basis: bool
+
+
+def reconstruct_geometry(cfg):
+    """Kernel K's launch for ``cfg``, from the config alone: the frame is
+    read on the card, so one launch serves every jitter."""
+    from .fitter_direct import basis_plan
+
+    be = cfg.block_edge
+    F, lo = cfg.feature_count, cfg.features_not_scaled_count
+    # the most blocks TILE cells from a multiple of TILE touch along one
+    # axis (the pattern repeats every lcm(TILE, be) cells)
+    span = max((t + TILE - 1) // be - t // be + 1
+               for t in range(0, math.lcm(TILE, be), TILE))
+    return ReconstructGeometry(
+        tiles_x=-(-cfg.blocks_x * be // TILE),
+        tiles_y=-(-cfg.blocks_y * be // TILE),
+        smem=span ** 2 * (8 * (F - lo) + 12 * F),
+        default_basis=basis_plan(cfg).default and lo == 4)
 
 
 def block_basis(cfg, mins_maxs, normals, positions, frame,
@@ -100,11 +140,13 @@ def weighted_sum(cfg, weights, mins_maxs, normals, positions, noisy,
     ft = frame_tensor(frame, dev)
     # the constant reads the first normal plane, which normal_x reads too
     extra, planes, ops = feature_table(cfg, normals, positions, normals)
+    geo = reconstruct_geometry(cfg)
     out = torch.empty((3, H, W), dtype=torch.float32, device=dev)
     _lib.launch("bmfr_block_reconstruct", ctypes.addressof(planes),
                 ctypes.addressof(ops), F, lo, weights.data_ptr(),
                 mins_maxs.data_ptr(), out.data_ptr(), ft.data_ptr(), H, W,
-                cfg.block_edge, cfg.blocks_x, int(sanitize))
+                cfg.block_edge, cfg.blocks_x, int(sanitize),
+                int(geo.default_basis), geo.tiles_x, geo.tiles_y, geo.smem)
     _lib.count_launch(weighted_sum)
     # the extra planes' memory is reused only after the kernel, in stream
     # order

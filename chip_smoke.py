@@ -75,7 +75,9 @@ stand for the default path's stages XLA fuses in the TPU step, I
 mode bit for bit (NaN where NaN), also on the NaN-laden field over a
 random state with NaN and infinite values; J bit for bit in each tmp
 dtype at three jitter frames; K within ``K_TOL`` of the products'
-magnitudes on the reused f32 blocks, with NaN positions, and on f16 tmp;
+magnitudes on the reused f32 blocks, with NaN positions (at every one of
+the 16 jitter frames), and on f16 tmp, and on the first-order and
+16-column bases (its table instance) at four jitter frames;
 with each kernel's device ms, bound, wrapper and plain ms, and for K
 ``torch.einsum`` on the rescaled blocks as its library yardstick. The
 default path's phases (``[path default]``, stream, staging, scenes,
@@ -188,7 +190,9 @@ from bmfr_tpu_torch.ops.warp_blend import (TAP_MODES, warp_blend,
                                            warp_blend_planes,
                                            warp_blend_planes_reference,
                                            warp_blend_reference)
-from bmfr_tpu_torch.ops.weighted_sum import (block_basis, weighted_sum,
+from bmfr_tpu_torch.ops.weighted_sum import (block_basis,
+                                             reconstruct_geometry,
+                                             weighted_sum,
                                              weighted_sum_reference)
 from bmfr_tpu_torch.pipeline.graph import CompiledStep
 from bmfr_tpu_torch.profile_stages import (eager_sequence,
@@ -680,9 +684,11 @@ def default_kernels_phase(exact, inputs, cams, offs, field):
     0: I in each warp mode (and in float32 on ``field``, a reprojection
     with NaN and infinities, over a random state with NaN and infinite
     values) and J in each tmp dtype, bit for bit; K within ``K_TOL`` on
-    the reused f32 blocks, with NaN positions, and on f16 tmp (raw
-    features, NaN kept). Returns ``(errs, ms, dev_ms, bounds, library)``
-    by letter: the largest |err|, (wrapper, plain) ms per call, device ms
+    the reused f32 blocks, with NaN positions (also at each of the 16
+    jitter frames), and on f16 tmp (raw features, NaN kept), and its
+    table instance on the first-order and 16-column bases of ``BASES``
+    at four jitter frames on f32 and f16 tmp. Returns ``(errs, ms,
+    dev_ms, bounds, library)`` by letter: the largest |err|, (wrapper, plain) ms per call, device ms
     per call, the bound, and K's library yardstick (``torch.einsum`` on
     the rescaled blocks)."""
     t0 = time.perf_counter()
@@ -770,6 +776,26 @@ def default_kernels_phase(exact, inputs, cams, offs, field):
              build_feature_blocks(f16, *geo_nan, 1))):
         errs["K"] = max(errs["K"], check_reconstruction(
             label, kcfg, w, mm, g, 1, blocks))
+    # every jitter frame: the tiles' windows and their blocks move with it
+    for f in range(16):
+        errs["K"] = max(errs["K"], check_reconstruction(
+            f"f32 tmp, NaN positions, frame {f}", exact, w, mm, geo_nan, f,
+            build_feature_blocks(exact, *geo_nan, f)))
+    # the table's instance: any other basis, its weights fitted by D
+    for name, fn in CROSS_FEATURES.items():
+        bt.register_feature(name, fn)
+    for bname in ("first_order", "16 columns"):
+        for dtype in ("float32", "float16"):
+            bcfg = exact.replace(tmp_data_dtype=dtype, **BASES[bname])
+            require(not reconstruct_geometry(bcfg).default_basis,
+                    f"weighted_sum {bname}: the register instance")
+            bw, bmm = fit_blocks_pallas(
+                bcfg, build_feature_blocks(bcfg, *geo_nan, 1), 1)
+            for f in (0, 5, 10, 15):
+                errs["K"] = max(errs["K"], check_reconstruction(
+                    f"{bname}, {dtype} tmp, NaN positions, frame {f}", bcfg,
+                    bw, bmm, geo_nan, f,
+                    build_feature_blocks(bcfg, *geo_nan, f)))
     args_k = (exact, w, mm, *geo, 1)
     ms["K"] = (cuda_ms(lambda: weighted_sum(*args_k, feature_blocks=tmp),
                        50),

@@ -5,7 +5,7 @@ kernels B and C (``fitter_chol_basis.cu``,
 ``filtered_tail.cu``) on one CUDA card.
 
     python3 scripts/torch_chol_phases.py [--root CHECKOUT]
-        [--kernel {B,B-basis,C-basis,F}] [--basis NAME ...]
+        [--kernel {B,B-basis,C-basis,F,K}] [--basis NAME ...]
         [--tile TXxTYxSTAGES ...]
 
 It copies the kernel's source from the checkout into a temporary
@@ -36,18 +36,33 @@ CTA's life (slot 0 the set-up before the first marker); the split is
 those sums' share of the warps' lives. ``--tile 32x16x2`` (repeatable)
 builds the source with ``BMFR_F_TX``, ``BMFR_F_TY`` and
 ``BMFR_F_STAGES`` set, a sweep of the tile shape and ring depth; by
-default the source's own. Needs a CUDA device and nvcc; imports no JAX.
+default the source's own.
+
+Kernel K (the block reconstruction, ``block_reconstruct.cu``) runs
+through ``weighted_sum`` on the orbit scene's frame 1 at 1280x720 on the
+default path, its inputs made by the plain versions, on f32 tmp (the
+blocks' rows reused) and f16 tmp. Its CTAs walk their pixels in a loop,
+so its stamps add up as kernel F's do (the set-up, the loads and
+products, the stores). It always splits this checkout's kernel;
+``--root DIR`` names a second checkout, whose package is imported beside
+this one under another name and builds its kernels through its own
+``ops/_lib.py`` (in a thread, while this checkout's K builds), and the
+two wrappers' device ms in K are taken in turns (DIR, this, this, DIR)
+with the largest difference of their outputs. Needs a CUDA device and
+nvcc; imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import re
 import subprocess
 import sys
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 #: stamp slots per warp; the last one is the kernel's end
@@ -65,10 +80,12 @@ KERNELS = {
     "C-basis": ("householder_direct_basis.cu", "fit_reconstruct_direct",
                 "householder", "fit_direct_basis_kernel"),
     "F": ("filtered_tail.cu", "filtered_tail", None, "filtered_tail_kernel"),
+    "K": ("block_reconstruct.cu", "weighted_sum", None,
+          "block_reconstruct_kernel"),
 }
 #: kernels whose markers run once a tile of a persistent loop: their
 #: stamps add up (LOOP_PRELUDE)
-LOOPED = ("F",)
+LOOPED = ("F", "K")
 
 PRELUDE = r"""
 __device__ long long bmfr_phase_clock[%(ctas)d][%(warps)d][%(slots)d];
@@ -390,6 +407,88 @@ def f_calls(cs, inputs, cams, offs):
     return calls
 
 
+def k_calls(cs, inputs, cams, offs):
+    """Kernel K's calls on the orbit scene's frame 1 on the default path,
+    its inputs from the plain versions of the stages before it (frame 0,
+    frame 1's warp, K1, blocks and fit), by tmp dtype: f32 (the blocks'
+    rows reused, NaN -> 0) and f16 (the raw features)."""
+    import bmfr_tpu_torch as bt
+    from bmfr_tpu_torch.ops.blockify import build_feature_blocks_reference
+    from bmfr_tpu_torch.ops.fitter import fit_blocks
+    from bmfr_tpu_torch.ops.reproject import (noisy_tail_reference,
+                                              reproject_coords_reference)
+    from bmfr_tpu_torch.ops.weighted_sum import weighted_sum
+    from bmfr_tpu_torch.pipeline.denoise import _warp_planes
+
+    dev = inputs.noisy.device
+    cfg = bt.BMFRConfig(image_width=cs.WIDTH, image_height=cs.HEIGHT,
+                        **cs.SCENE_LIMITS)
+    cur = cs.frame_of(inputs, 1)
+    st0, _ = bt.denoise_frame(cfg, bt.zero_state(cfg, dev),
+                              cs.frame_of(inputs, 0), cams[0], offs[0], 0,
+                              plain=True)
+    pp = reproject_coords_reference(cfg, cur.positions, cams[0], offs[1])
+    planes = _warp_planes(cfg, st0, cur, pp[0], pp[1], True, True)[0]
+    accum = noisy_tail_reference(cfg, cur.noisy, pp, planes, cur.positions,
+                                 cur.normals, 1)["accum"]
+    calls = {}
+    for dtype in ("float32", "float16"):
+        kcfg = cfg.replace(tmp_data_dtype=dtype)
+        tmp = build_feature_blocks_reference(kcfg, cur.normals,
+                                             cur.positions, accum, 1)
+        w, mm = (t.contiguous() for t in fit_blocks(kcfg, tmp, 1,
+                                                    impl="xla"))
+        args = (kcfg, w, mm, cur.normals, cur.positions, accum, 1)
+        calls[f"default {dtype}"] = (
+            lambda args=args, tmp=tmp: weighted_sum(*args,
+                                                    feature_blocks=tmp),
+            args + (tmp,))
+    return calls
+
+
+def other_package(root, alias="bmfr_tpu_torch_other"):
+    """Checkout ``root``'s ``bmfr_tpu_torch`` imported under ``alias``
+    beside this checkout's (its modules import each other relatively), so
+    its wrappers build and call its own kernels through its own
+    ``ops/_lib.py``, whatever their entry points' arguments."""
+    pkg = root / "bmfr_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        alias, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def compare_k(cs, other_ws, cases):
+    """This checkout's kernel K and another's, each through its own
+    ``weighted_sum`` (``other_ws``) on ``cases`` (k_calls'): device ms per
+    call in turns (other, this, this, other), and the largest
+    |difference| of their outputs (NaN where NaN in both)."""
+    import torch
+
+    out = {}
+    for key, (run, inputs) in cases.items():
+        *args, tmp = inputs
+
+        def other(args=args, tmp=tmp):
+            return other_ws(*args, feature_blocks=tmp)
+
+        ms = [cs.kernel_device_ms(f, "block_reconstruct_kernel", 20)
+              for f in (other, run, run, other)]
+        got_other, mine = other(), run()
+        torch.cuda.synchronize()
+        nan = mine.isnan() & got_other.isnan()
+        same_nan = bool(torch.equal(mine.isnan(), got_other.isnan()))
+        diff = float(torch.where(nan, 0.0, (mine - got_other).abs()).max())
+        out[key] = dict(root_ms=[ms[0], ms[3]], this_ms=[ms[1], ms[2]],
+                        max_abs_diff=diff, same_nan=same_nan)
+        print(f"[K {key}] device ms per call: other checkout {ms[0]:.4f}, "
+              f"{ms[3]:.4f}; this checkout {ms[1]:.4f}, {ms[2]:.4f}; "
+              f"max |this - other| {diff:.3e}, NaN equal {same_nan}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=".", help="a checkout of the repository")
@@ -407,8 +506,19 @@ def main():
     source, wrapper, solver, kname = KERNELS[args.kernel]
     loop = args.kernel in LOOPED
     work = Path(tempfile.mkdtemp(prefix="chol_phases_"))
+    # kernel K: split this checkout's kernel, time --root's beside it,
+    # built by its own _lib while this one builds
+    other = None
+    here = Path(__file__).resolve().parents[1]
+    if args.kernel == "K" and root != here:
+        other = other_package(root)
+        other_build = ThreadPoolExecutor(1).submit(
+            sys.modules[other.__name__ + ".ops._lib"].build)
+        root = here
     built, names = build(root, work, source, kname if loop else None, loop,
                          args.tile or (None,))
+    if other is not None:
+        other_build.result()
 
     import numpy as np
     import torch
@@ -427,11 +537,16 @@ def main():
     inputs = bt.frame_inputs_from_numpy(sc["normals"], sc["positions"],
                                         sc["noisy"], sc["albedo"], dev)
     # each case: (a call of the wrapper, the fitters' column count)
-    if args.kernel == "F":
+    if args.kernel in ("F", "K"):
         cams = torch.from_numpy(sc["camera_matrices"]).to(dev)
         offs = torch.from_numpy(sc["pixel_offsets"]).to(dev)
-        cases = {path: (call, None) for path, call in
-                 f_calls(cs, inputs, cams, offs).items()}
+        if args.kernel == "F":
+            cases = {key: (call, None) for key, call in
+                     f_calls(cs, inputs, cams, offs).items()}
+        else:
+            k_cases = k_calls(cs, inputs, cams, offs)
+            cases = {key: (call, None)
+                     for key, (call, _) in k_cases.items()}
     else:
         c5 = cs.frame_of(inputs, 5)
         base = bt.BMFRConfig(image_width=cs.WIDTH, image_height=cs.HEIGHT,
@@ -464,6 +579,12 @@ def main():
         _lib._lib = load(lib, _lib._SIGNATURES)
         plain_ms = {key: cs.kernel_device_ms(run, kname, 20)
                     for key, (run, _) in cases.items()}
+        if other is not None:
+            out["other"] = str(Path(other.__file__).parents[1])
+            out["compare"] = compare_k(
+                cs, importlib.import_module(
+                    other.__name__ + ".ops.weighted_sum").weighted_sum,
+                k_cases)
         stamped = _lib._lib = load(lib_stamped, _lib._SIGNATURES)
         for key, (run, columns) in cases.items():
             stamped_ms = cs.kernel_device_ms(run, kname, 20)

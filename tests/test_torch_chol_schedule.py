@@ -209,6 +209,55 @@ def test_phase_script_adds_up_kernel_f_loop():
     assert tcp.tile_defines(None) == []
 
 
+def test_phase_script_adds_up_kernel_k_loop():
+    """Kernel K's CTAs walk their pixels in a loop: its stamps add up
+    (set-up, loads and products, stores; the last two in both of its
+    instances), each return and its end close a warp's record; a second
+    checkout's package loads beside this one under another name, with its
+    own ``_lib`` and wrappers, and its ``weighted_sum`` takes this
+    checkout's config and gives the same image (the plain version, on
+    the CPU)."""
+    tcp = phases_script()
+    source, wrapper, _, name = tcp.KERNELS["K"]
+    assert "K" in tcp.LOOPED and wrapper == "weighted_sum"
+    src = (ROOT / "bmfr_tpu_torch" / "csrc" / source).read_text()
+    stamped, names = tcp.stamped_source(src, name, loop=True)
+    assert sorted(names) == [1, 2, 3]
+    body = stamped[stamped.index(name + "(FeatureTable"):
+                   stamped.index("}  // namespace", stamped.index(name))]
+    assert body.count("BMFR_BEGIN;") == 1
+    assert body.count("BMFR_STAMP(1);") == 1
+    assert body.count("BMFR_STAMP(2);") == body.count("BMFR_STAMP(3);") == 2
+    assert body.count("{ BMFR_END; return; }") == 2
+    assert body.rstrip().endswith("BMFR_END;\n}")
+    assert body.count("BMFR_END;") == 3
+    import sys
+
+    import bmfr_tpu_torch as bt
+    from bmfr_tpu_torch.ops import weighted_sum as ws
+
+    alias = "bmfr_tpu_torch_phases_test"
+    other = tcp.other_package(ROOT, alias)
+    try:
+        assert other is not bt and other.__name__ == alias
+        ows = sys.modules[alias + ".ops.weighted_sum"]
+        assert ows is not ws and ows.weighted_sum is not ws.weighted_sum
+        assert sys.modules[alias + ".ops._lib"].CSRC == ws._lib.CSRC
+        H, W = 24, 40
+        cfg = bt.BMFRConfig(image_width=W, image_height=H, block_edge=8)
+        g = torch.Generator().manual_seed(5)
+        n, pos, noisy = torch.randn(3, 3, H, W, generator=g)
+        w = torch.randn(cfg.n_blocks, cfg.feature_count, 3, generator=g)
+        mm = torch.randn(cfg.n_blocks, cfg.feature_count
+                         - cfg.features_not_scaled_count, 2, generator=g)
+        args = (cfg, w, mm, n, pos, noisy, 3)
+        assert torch.equal(ows.weighted_sum(*args), ws.weighted_sum(*args))
+    finally:
+        for name in [m for m in sys.modules
+                     if m == alias or m.startswith(alias + ".")]:
+            del sys.modules[name]
+
+
 def test_loop_phase_summary_from_fake_stamps():
     """Two persistent CTAs of 2 warps on one SM at once: each warp's
     cycles per phase (slot 0 before the first marker), start and end."""

@@ -26,7 +26,9 @@ from bmfr_tpu_torch.ops.blockify import (build_feature_blocks,
                                          build_feature_blocks_reference)
 from bmfr_tpu_torch.ops.fitter_direct import feature_table
 from bmfr_tpu_torch.ops.warp_blend import TAP_MODES, warp_blend_planes
-from bmfr_tpu_torch.ops.weighted_sum import (weighted_sum,
+from bmfr_tpu_torch.ops.weighted_sum import (BAND, THREADS, TILE,
+                                             reconstruct_geometry,
+                                             weighted_sum,
                                              weighted_sum_reference)
 from conftest import to_chw
 
@@ -454,3 +456,99 @@ def test_block_reconstruct_index_arithmetic(tiny_cfg, block_edge, sanitize):
     assert ok.mean() > 0.9 and F == 10
     np.testing.assert_array_equal(got[~ok], want[~ok])
     assert np.all(np.abs(got[ok] - want[ok]) <= 2e-6 * mag[ok])
+
+
+def replay_tiles(cfg, frame):
+    """Kernel K's CTA -> pixel map replayed in numpy, launched as
+    ``reconstruct_geometry`` says: per tile, thread and row of its band,
+    the pixel it writes and the slot of the block whose values it takes.
+    Returns the pixels written, (y, x, block row, block column) each, and
+    per tile whether it is live and how many blocks a live one stages."""
+    geo = reconstruct_geometry(cfg)
+    be, half = cfg.block_edge, cfg.block_edge // 2
+    H, W = cfg.image_height, cfg.image_width
+    ox, oy = (BLOCK_OFFSETS[frame & 15] * be) >> 5
+    # per tile: its first cell, the window and the blocks it touches
+    ty, tx = np.divmod(np.arange(geo.tiles_y * geo.tiles_x, dtype=np.int32),
+                       geo.tiles_x)
+    mx0, my0 = tx * TILE, ty * TILE
+    x0, y0 = mx0 - half + ox, my0 - half + oy
+    xa, xb = np.maximum(x0, 0), np.minimum(x0 + TILE, W)
+    ya, yb = np.maximum(y0, 0), np.minimum(y0 + TILE, H)
+    live = (xa < xb) & (ya < yb)
+    bx0, by0 = (mx0 + xa - x0) // be, (my0 + ya - y0) // be
+    nbx = (mx0 + xb - 1 - x0) // be - bx0 + 1
+    nby = (my0 + yb - 1 - y0) // be - by0 + 1
+    if be % TILE == 0:
+        # the kernel stages a tile inside one block before the frame is
+        # read: the window's blocks must be that block
+        assert (nbx[live] == 1).all() and (nby[live] == 1).all()
+        assert (bx0 == mx0 // be)[live].all() and (by0 == my0 // be)[live].all()
+    # per thread and row of its band: the pixel, kept where it is in the
+    # window of a live tile
+    t = np.arange(THREADS, dtype=np.int32)
+    c, band = t % TILE, t // TILE
+    x = x0[:, None] + c                                  # [tiles, THREADS]
+    y = (y0[:, None, None] + (band * BAND)[:, None]
+         + np.arange(BAND, dtype=np.int32))              # [.., BAND]
+    written = (live[:, None, None]
+               & ((x >= xa[:, None]) & (x < xb[:, None]))[:, :, None]
+               & (y >= ya[:, None, None]) & (y < yb[:, None, None]))
+    idx = np.flatnonzero(written)
+    tile, rest = np.divmod(idx, THREADS * BAND)
+    thread = rest // BAND
+    slot = (((my0[tile] + band[thread] * BAND) // be - by0[tile]) * nbx[tile]
+            + (mx0[tile] + c[thread]) // be - bx0[tile])
+    assert ((slot >= 0) & (slot < nby[tile] * nbx[tile])).all()
+    return (y.ravel()[idx], x.ravel()[idx // BAND],
+            by0[tile] + slot // nbx[tile], bx0[tile] + slot % nbx[tile],
+            live, (nby * nbx)[live])
+
+
+@pytest.mark.parametrize("size", [(48, 64), (100, 332), (720, 1280)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("block_edge", [8, 16, 32, 64])
+def test_block_reconstruct_tiles_cover_each_pixel_once(size, block_edge):
+    """Kernel K's launch (``reconstruct_geometry``) and its CTA -> pixel
+    map, replayed in numpy at every one of the 16 jitter frames: each
+    image pixel is written exactly once, with the values of the block
+    ``weighted_sum_image``'s mapping gives it, (y + half - oy) // be and
+    (x + half - ox) // be; a tile stages no more blocks than the shared
+    memory the launch gives it holds; the grid does not depend on the
+    frame; at 720x1280 and block_edge 32 the last row of tiles is empty
+    exactly when oy >= 0."""
+    H, W = size
+    cfg = bt.BMFRConfig(image_width=W, image_height=H, block_edge=block_edge)
+    be, half = block_edge, block_edge // 2
+    F, lo = cfg.feature_count, cfg.features_not_scaled_count
+    geo = reconstruct_geometry(cfg)
+    assert geo.default_basis
+    # the blocks a tile's shared memory holds
+    slots, rest = divmod(geo.smem, 4 * (2 * (F - lo) + 3 * F))
+    assert rest == 0 and slots >= 1
+    for frame in range(16):
+        ox, oy = (BLOCK_OFFSETS[frame] * be) >> 5
+        y, x, by, bx, live, staged = replay_tiles(cfg, frame)
+        count = np.bincount(y * W + x, minlength=H * W)
+        assert len(count) == H * W and (count == 1).all(), frame
+        assert (by == (y + half - oy) // be).all(), frame
+        assert (bx == (x + half - ox) // be).all(), frame
+        assert (by < cfg.blocks_y).all() and (bx < cfg.blocks_x).all()
+        assert staged.max() <= slots
+        if size == (720, 1280) and be == 32:
+            assert (geo.tiles_x, geo.tiles_y) == (41, 24)
+            assert live.reshape(24, 41)[23].any() == (oy < 0)
+    assert reconstruct_geometry(cfg) == geo
+
+
+def test_reconstruct_geometry_picks_the_default_basis(tiny_cfg):
+    """Kernel K's register instance serves the ten default features with
+    the first four unscaled, each still built in; any other basis, or the
+    same ten split otherwise, takes the table's instance."""
+    cfg = bt.config_from_jax(tiny_cfg)
+    assert reconstruct_geometry(cfg).default_basis
+    first_order = cfg.replace(features_scaled=cfg.features_scaled[:3])
+    assert not reconstruct_geometry(first_order).default_basis
+    split = cfg.replace(features_not_scaled=cfg.all_features[:3],
+                        features_scaled=cfg.all_features[3:])
+    assert not reconstruct_geometry(split).default_basis

@@ -1457,42 +1457,94 @@ def reconstruction_bound(cfg, weights, mins_maxs, planes, frame, tmp):
     return K_TOL * unblockify_planes(cfg, mag, frame)
 
 
-@pytest.mark.parametrize("block_edge", [16, 32])
-@pytest.mark.parametrize("dtype", ["float32", "float16"])
-def test_block_reconstruct_kernel_within_tolerance(cuda, dtype, block_edge):
-    """Kernel K against its plain version within K_TOL of the products'
-    magnitudes, NaN where NaN: NaN positions turn into 0 where the plain
-    version reads the f32 blocks and stay NaN on f16 tmp (and without the
-    blocks)."""
+def check_reconstruction(cfg, planes, frame, w, mm, blocks):
+    """One call of kernel K against its plain version: NaN where NaN,
+    elsewhere within K_TOL of the products' magnitudes; one launch."""
     from bmfr_tpu_torch.ops.weighted_sum import weighted_sum_reference
 
-    H, W = 100, 332
+    n, pos, acc = planes
+    args = (cfg, w, mm, n, pos, acc, frame)
+    n0 = weighted_sum.launches
+    got = weighted_sum(*args, feature_blocks=blocks)
+    assert weighted_sum.launches == n0 + 1
+    want = weighted_sum_reference(*args, feature_blocks=blocks)
+    bound = reconstruction_bound(cfg, w, mm, (n, pos), frame, blocks)
+    torch.cuda.synchronize()
+    nan = want.isnan()
+    assert torch.equal(got.isnan(), nan), frame
+    assert bool(((got - want).abs() <= bound)[~nan].all()), frame
+    return nan
+
+
+@pytest.mark.parametrize("H,W", [(100, 332), (96, 320)])
+@pytest.mark.parametrize("block_edge", [8, 16, 32, 64])
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+def test_block_reconstruct_kernel_within_tolerance(cuda, dtype, block_edge,
+                                                   H, W):
+    """Kernel K against its plain version within K_TOL of the products'
+    magnitudes, NaN where NaN, at every one of the 16 jitter frames (the
+    frame from a host int and from a tensor on the card), block edges 8
+    to 64, W not a multiple of 32 and H a multiple of 32: NaN positions
+    turn into 0 where the plain version reads the f32 blocks and stay NaN
+    on f16/bf16 tmp (and without the blocks)."""
     cfg = scene_cfg(H, W).replace(tmp_data_dtype=dtype,
                                   block_edge=block_edge, warp_mode="float32",
                                   fitter_impl="auto", solver="householder")
     rng = np.random.default_rng(block_edge)
-    n, pos, acc = (t.contiguous() for t in torch.from_numpy(
+    planes = tuple(t.contiguous() for t in torch.from_numpy(
         rng.standard_normal((9, H, W)).astype(np.float32)).to(cuda).split(3))
-    pos[0, 40, 100:130] = float("nan")
-    frame = 11
-    tmp = build_feature_blocks(cfg, n, pos, acc, frame)
-    w, mm = fit_blocks_pallas(cfg, tmp, frame)
-    for blocks in (tmp, None):
-        args = (cfg, w, mm, n, pos, acc, frame)
-        n0 = weighted_sum.launches
-        got = weighted_sum(*args, feature_blocks=blocks)
-        assert weighted_sum.launches == n0 + 1
-        want = weighted_sum_reference(*args, feature_blocks=blocks)
-        bound = reconstruction_bound(cfg, w, mm, (n, pos), frame, blocks)
-        torch.cuda.synchronize()
-        nan = want.isnan()
-        assert torch.equal(got.isnan(), nan)
-        assert bool(nan.any()) == (blocks is None or dtype != "float32")
-        assert bool(((got - want).abs() <= bound)[~nan].all())
+    planes[1][0, 40, 100:130] = float("nan")
+    w, mm = fit_blocks_pallas(cfg, build_feature_blocks(cfg, *planes, 11),
+                              11)
+    for frame in range(16):
+        f = (torch.tensor(frame, dtype=torch.int32, device=cuda)
+             if frame % 2 else frame)
+        tmp = build_feature_blocks(cfg, *planes, frame)
+        for blocks in (tmp, None):
+            nan = check_reconstruction(cfg, planes, f, w, mm, blocks)
+            assert bool(nan.any()) == (blocks is None
+                                       or dtype != "float32")
     cfg_skip = cfg.replace(skip_fitting=True)
     n0 = weighted_sum.launches
-    assert weighted_sum(cfg_skip, w, mm, n, pos, acc, frame) is acc
+    assert weighted_sum(cfg_skip, w, mm, *planes, 11) is planes[2]
     assert weighted_sum.launches == n0
+
+
+@pytest.mark.parametrize("basis", ["16-columns", "first_order",
+                                   "reregistered"])
+def test_block_reconstruct_kernel_on_other_bases(cuda, cross_features,
+                                                 basis):
+    """Kernel K's table instance (any basis but the default one): the
+    16-column basis (three registered features read from extra planes),
+    first order, and the default names with ``normal_x`` registered
+    anew, each within K_TOL of its plain version at four jitter frames on
+    f32 and f16 tmp, NaN where NaN."""
+    from bmfr_tpu_torch import features
+    from bmfr_tpu_torch.ops.weighted_sum import reconstruct_geometry
+
+    H, W = 100, 332
+    kw = BASES.get(basis, {})
+    planes = tuple(t.contiguous() for t in torch.from_numpy(
+        np.random.default_rng(3).standard_normal((9, H, W)).astype(
+            np.float32)).to(cuda).split(3))
+    planes[1][2, 7:30, 50] = float("nan")
+    saved = features.FEATURE_REGISTRY["normal_x"]
+    if basis == "reregistered":
+        features.register_feature("normal_x", lambda n, p: n[0] * 1.5)
+    try:
+        for dtype in ("float32", "float16"):
+            cfg = scene_cfg(H, W).replace(tmp_data_dtype=dtype,
+                                          warp_mode="float32",
+                                          fitter_impl="auto",
+                                          solver="householder", **kw)
+            assert not reconstruct_geometry(cfg).default_basis
+            w, mm = fit_blocks_pallas(
+                cfg, build_feature_blocks(cfg, *planes, 2), 2)
+            for frame in (0, 5, 10, 15):
+                tmp = build_feature_blocks(cfg, *planes, frame)
+                check_reconstruction(cfg, planes, frame, w, mm, tmp)
+    finally:
+        features.FEATURE_REGISTRY["normal_x"] = saved
 
 
 @pytest.mark.parametrize("variant", [
