@@ -49,9 +49,12 @@ ms (BASELINE.md) over the headline, plus ``device`` (the card's
 around the replays) and ``busy_ms_per_frame`` (the device's busy time in
 one more run under ``torch.profiler``, beside ``device_span_ms_per_frame``,
 its first kernel's start to its last kernel's end, as
-``xplane.device_busy_span`` gives them in ``bench.py:206-233``). On the
-CPU the three device numbers are null: a host time is never written
-under a device metric's name.
+``xplane.device_busy_span`` gives them in ``bench.py:206-233``). That
+trace is checked (:func:`profiled_run`): it runs the same frames eagerly
+and compiled before the run, holds one device event of the port's
+kernels per launch, and is taken again when it lost or gained one (at
+most three traces). On the CPU the three device numbers are null: a host
+time is never written under a device metric's name.
 
 Deliberate divergences from ``bench.py``:
 
@@ -81,8 +84,10 @@ from .fidelity import device_name
 from .io.fixtures import synthetic_sequence
 from .pipeline.denoise import (FrameInputs, denoise_frame, denoise_sequence,
                                frame_inputs_from_numpy, zero_state)
+from .ops._lib import tally_launches
 from .pipeline.graph import COUNTED, compiled_step
-from .profiling import RUN_RANGE, device_events, traced_run
+from .profile_stages import checked_trace, eager_sequence
+from .profiling import RUN_RANGE, device_events
 
 BASELINE_MS = 1.6  # reference paper headline, BASELINE.md
 
@@ -198,6 +203,64 @@ def steady_ms_per_frame(cfg, inputs, cams, offs):
     return start.elapsed_time(end) / (T - 1)
 
 
+def sequence_run(cfg, inputs, cams, offs):
+    """``(warm, run)`` of the bench's profiled run: ``run`` one
+    ``denoise_sequence`` of the scene up to its checksum's host read, as
+    each timed run; ``warm`` the same frames through the eager step
+    (frame 0's kernels among them) and then as ``run``. A trace loses the
+    device events of the eager work it starts with
+    (:func:`~bmfr_tpu_torch.profiling.traced_run`): in a long process a
+    warm-up of frame 0 alone lost all its events and, in three traces in
+    a row, the run's frame 0 too (``chip_smoke.py``'s ``[bench]`` cells
+    on the H100)."""
+
+    def warm():
+        eager_sequence(cfg, inputs, cams, offs)
+        run()
+
+    def run():
+        denoise_sequence(cfg, inputs, cams, offs,
+                         return_stats=True)[0].sum().item()
+
+    return warm, run
+
+
+def profiled_run(warm, run, device, frames, expected, log=None):
+    """``(span, busy)``: device ms per frame of ``run()`` (``frames``
+    frames) under ``torch.profiler``, through :func:`~bmfr_tpu_torch.
+    profile_stages.checked_trace`: ``warm()`` first in the same trace, the
+    trace held to one device event of the port's kernels per launch
+    (printed to ``log``; a trace that lost or gained events is taken again,
+    up to ``TRACE_ATTEMPTS`` traces, then it raises) and the run's
+    launches to ``expected``. Busy sums, and the span spans, the device
+    events that started inside the run's range. Raises when the run
+    launches other than ``expected`` or records no device event."""
+    from torch.profiler import ProfilerActivity
+
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    tally = {}
+    events = checked_trace("[bench] profiled run", acts, run, device,
+                           warm=warm, log=log, launches=tally)
+    launches = {name: tally.get(fn, 0) for name, fn in COUNTERS.items()}
+    if launches != expected:
+        raise RuntimeError(f"bench: the profiled run's launches {launches}, "
+                           f"expected {expected}")
+    work = device_events(events, within=RUN_RANGE)
+    left_out = len(device_events(events)) - len(work)
+    del events
+    if not work:
+        raise RuntimeError("bench: the profiled run recorded no device "
+                           "event")
+    busy = sum(e.time_range.elapsed_us() for e in work) / frames / 1e3
+    span = (max(e.time_range.end for e in work)
+            - min(e.time_range.start for e in work)) / frames / 1e3
+    print(f"[bench] profiled run: device span {span:.4f} ms/frame (busy "
+          f"{busy:.4f}, {len(work) / frames:.1f} device kernels/frame; "
+          f"{left_out} outside the run's range left out)", file=log)
+    return span, busy
+
+
 def warp_record(stats, frames, n_px, log):
     """``(served %, fallback frames)`` of the ``[T, 6]`` warp record over
     the warped frames 1..T-1, computed and printed as ``bench.py``
@@ -228,8 +291,9 @@ def run_bench(cfg, inputs, cams, offs, *, reps=5, scene="orbit",
     output and the launches of one run by wrapper name. Raises when an
     output is not finite, a checksum differs from the first run's, a
     run's launches differ from :func:`expected_launches` (on the CPU:
-    none) or a profiled run on the card records no device event. The
-    progress lines go to ``log`` (default ``sys.stderr``)."""
+    none) or the profiled run on the card fails its trace's check
+    (:func:`profiled_run`). The progress lines go to ``log`` (default
+    ``sys.stderr``)."""
     log = sys.stderr if log is None else log
     dev = inputs.noisy.device
     cuda = dev.type == "cuda"
@@ -277,28 +341,15 @@ def run_bench(cfg, inputs, cams, offs, *, reps=5, scene="orbit",
 
     steady = span_ms = busy_ms = None
     if cuda:
-        from torch.profiler import ProfilerActivity
-
-        steady = steady_ms_per_frame(cfg, inputs, cams, offs)
-        torch.cuda.synchronize(dev)
-        with traced_run([ProfilerActivity.CPU,
-                         ProfilerActivity.CUDA]) as prof:
-            timed()
-        events = prof.events()
-        work = device_events(events, within=RUN_RANGE)
-        left_out = len(device_events(events)) - len(work)
-        del prof, events
-        if not work:
-            raise RuntimeError("bench: the profiled run recorded no device "
-                               "event")
-        busy = sum(e.time_range.elapsed_us() for e in work)
-        span = (max(e.time_range.end for e in work)
-                - min(e.time_range.start for e in work))
-        span_ms, busy_ms = span / T / 1e3, busy / T / 1e3
-        print(f"[bench] steady frames 1..{T - 1}: {steady:.4f} ms/frame; "
-              f"device span {span_ms:.4f} ms/frame (busy {busy_ms:.4f}, "
-              f"{len(work) / T:.1f} device kernels/frame; {left_out} "
-              f"outside the run's range left out)", file=log)
+        # these two runs tally their launches apart (the profiled one holds
+        # its own to ``expected``): the counters keep the last timed run's
+        with tally_launches():
+            steady = steady_ms_per_frame(cfg, inputs, cams, offs)
+            print(f"[bench] steady frames 1..{T - 1}: {steady:.4f} "
+                  f"ms/frame", file=log)
+            span_ms, busy_ms = profiled_run(
+                *sequence_run(cfg, inputs, cams, offs), dev, T, expected,
+                log)
 
     record = {
         "metric": f"denoise_ms_per_frame_{W}x{H}",

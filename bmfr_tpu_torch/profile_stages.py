@@ -268,7 +268,7 @@ def _attribute(events, cuda):
     return per, sum(t for _, t in work), loose, inside
 
 
-def check_launches(label, events, tally):
+def check_launches(label, events, tally, log=None):
     """Whether a trace's ``events`` (a :func:`~bmfr_tpu_torch.
     profiling.traced_run`'s) hold, inside its run's range, one device
     event of the port's kernels (:data:`~bmfr_tpu_torch.ops._lib.
@@ -278,7 +278,8 @@ def check_launches(label, events, tally):
     events cannot split the frame. Prints the count and where the first
     and last device events lie from the range's host start and end (a
     device event cannot start before the range that launched it: a
-    negative lead is the clocks' disagreement)."""
+    negative lead is the clocks' disagreement) to ``log`` (default
+    ``sys.stdout``)."""
     work = device_events(events, within=RUN_RANGE)
     want = sum(tally.values())
     got = sum(1 for e in work if any(k in e.name for k in _lib.KERNELS))
@@ -297,7 +298,7 @@ def check_launches(label, events, tally):
           f"launches counted ({len(device_events(events)) - len(work)} "
           f"device events outside the range{edges}); events by kernel "
           f"{dict(names)}, launches by wrapper "
-          f"{ {fn.__name__: n for fn, n in tally.items()} }")
+          f"{ {fn.__name__: n for fn, n in tally.items()} }", file=log)
     return got == want
 
 
@@ -305,13 +306,15 @@ def check_launches(label, events, tally):
 TRACE_ATTEMPTS = 3
 
 
-def checked_trace(label, acts, run, device, warm=None):
+def checked_trace(label, acts, run, device, warm=None, log=None,
+                  launches=None):
     """The events of one :func:`~bmfr_tpu_torch.profiling.traced_run` of
     ``run()`` (``warm()`` first, in the same trace), this thread's
     launches tallied. On the card each trace must hold every launch
-    (:func:`check_launches`); one that lost or gained device events is
-    printed and taken again, and after :data:`TRACE_ATTEMPTS` such traces
-    this raises."""
+    (:func:`check_launches`, printed to ``log``); one that lost or gained
+    device events is printed and taken again, and after
+    :data:`TRACE_ATTEMPTS` such traces this raises. ``launches``: a dict
+    that takes the returned trace's tally, launches by wrapper."""
     synchronize(device)
     for attempt in range(1, TRACE_ATTEMPTS + 1):
         with traced_run(acts, warm=warm) as prof, \
@@ -319,7 +322,9 @@ def checked_trace(label, acts, run, device, warm=None):
             run()
         events = prof.events()
         if device.type != "cuda" or check_launches(
-                f"{label} (trace {attempt})", events, tally):
+                f"{label} (trace {attempt})", events, tally, log):
+            if launches is not None:
+                launches.update(tally)
             return events
     raise RuntimeError(f"{label}: {TRACE_ATTEMPTS} traces lost or gained "
                        "device events of the port's kernels")

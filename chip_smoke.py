@@ -127,7 +127,12 @@ host threads render the 60-frame swing and orbit scenes; then the bench's
 ``run_bench`` in this process on the swing flagship (A 59, B 60), the
 reference-exact default path (D 60) and the householder flagship (A 59,
 C 60), each with every
-count set to 0 just before it and read just after. ``[bench trace]``
+count set to 0 just before it and read just after. Each cell's profiled
+run (its busy and span) goes through ``profile_stages.checked_trace``:
+the phase prints each cell's trace check (device events of the port's
+kernels against the launches of one run, and which trace held them) and
+fails on a bench that raises, as one does after three lossy traces.
+``[bench trace]``
 splits the flagship's 60-frame sequence by stage
 (``profile_stages.sequence_trace_report``: the eager pass's stages, the
 compiled sequence's busy time and span) and fails unless the eager total
@@ -143,6 +148,7 @@ exits non-zero at once.
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import re
@@ -195,7 +201,7 @@ from bmfr_tpu_torch.ops.weighted_sum import (block_basis,
                                              weighted_sum,
                                              weighted_sum_reference)
 from bmfr_tpu_torch.pipeline.graph import CompiledStep
-from bmfr_tpu_torch.profile_stages import (eager_sequence,
+from bmfr_tpu_torch.profile_stages import (TRACE_ATTEMPTS, eager_sequence,
                                            sequence_trace_report,
                                            steady_setup, trace_report)
 from bmfr_tpu_torch.profiling import RUN_RANGE, device_events, traced_run
@@ -1990,6 +1996,30 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "spread_ms",
               "reps_ms", "config", "device_span_ms_per_frame",
               "warp_kernel_served_pct", "warp_fallback_frames")
 BENCH_LAUNCHES = re.compile(r"^\[bench\] launches per run: (\{.*\})$", re.M)
+#: a bench's trace check (``profile_stages.check_launches`` through
+#: ``bench.profiled_run``): the trace's number, events and launches
+BENCH_TRACE = re.compile(r"^\[bench\] profiled run \(trace (\d+)\): (\d+) "
+                         r"device events of the port's kernels for (\d+) "
+                         r"launches counted", re.M)
+
+
+def bench_trace_check(label, log, expected):
+    """The trace check of one ``[bench]`` cell, read from its log and
+    printed: its last trace must hold one device event of the port's
+    kernels per launch of one run (``expected``). A bench whose traces all
+    lost or gained events has raised before this."""
+    found = BENCH_TRACE.findall(log)
+    require(found, f"[bench] {label}: no trace check in its log")
+    trace, events, launches = map(int, found[-1])
+    want = sum(expected.values())
+    require(events == launches == want,
+            f"[bench] {label}: the profiled run's trace holds {events} "
+            f"device events of the port's kernels for {launches} launches "
+            f"({want} a run)")
+    print(f"[bench] {label}: trace check {events} device events of the "
+          f"port's kernels for {launches} launches of one run, trace "
+          f"{trace} of at most {TRACE_ATTEMPTS}")
+    return dict(trace=trace, events=events, launches=launches)
 
 
 def bench_command(flagship):
@@ -2030,7 +2060,8 @@ def bench_command(flagship):
     launches = json.loads(found.group(1))
     require(launches == bench.expected_launches(flagship, BENCH_FRAMES),
             f"bench launches {launches}")
-    return rec, launches
+    return rec, launches, bench_trace_check("flagship orbit (command)",
+                                            proc.stderr, launches)
 
 
 def bench_phase(flagship, exact, hh_flagship, dev):
@@ -2049,14 +2080,15 @@ def bench_phase(flagship, exact, hh_flagship, dev):
                                    height=HEIGHT, frames=BENCH_FRAMES,
                                    scene=name)
                    for name in ("swing", "orbit")}
-        rec, launches = bench_command(flagship)
+        rec, launches, trace = bench_command(flagship)
         command_s = time.perf_counter() - t0
         scenes = {name: f.result() for name, f in renders.items()}
     render_s = time.perf_counter() - t0
     print(f"[bench] the command {command_s:.1f} s; the 60-frame swing and "
           f"orbit scenes rendered on host threads beside it by "
           f"{render_s:.1f} s")
-    runs = {"flagship orbit (command)": dict(record=rec, launches=launches)}
+    runs = {"flagship orbit (command)": dict(record=rec, launches=launches,
+                                             trace=trace)}
     on_card = {}
     for label, cfg, name in (("flagship swing", flagship, "swing"),
                              ("default", exact, "orbit"),
@@ -2068,16 +2100,21 @@ def bench_phase(flagship, exact, hh_flagship, dev):
         for fn in bench.COUNTERS.values():
             fn.launches = 0
         t1 = time.perf_counter()
-        record, out, expected = bench.run_bench(
-            cfg, inputs, cams, offs, reps=5, scene=name, log=sys.stdout)
+        log = io.StringIO()
+        try:    # a bench that raises fails the phase: its log is printed
+            record, out, expected = bench.run_bench(
+                cfg, inputs, cams, offs, reps=5, scene=name, log=log)
+        finally:
+            print(log.getvalue(), end="")
         got = {k: fn.launches for k, fn in bench.COUNTERS.items()}
         require(got == expected, f"[bench] {label}: launches {got}, "
                 f"expected {expected}")
         require(tuple(out.shape) == (BENCH_FRAMES, 3, HEIGHT, WIDTH),
                 f"[bench] {label}: output shape {tuple(out.shape)}")
+        trace = bench_trace_check(label, log.getvalue(), expected)
         print(f"[bench] {label}: {json.dumps(record)}; launches of one run "
               f"{got}; {time.perf_counter() - t1:.1f} s")
-        runs[label] = dict(record=record, launches=got)
+        runs[label] = dict(record=record, launches=got, trace=trace)
         del out
     print(f"[bench] the phase took {time.perf_counter() - t0:.1f} s")
     return runs, on_card["orbit"]

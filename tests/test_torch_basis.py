@@ -28,6 +28,7 @@ from bmfr_tpu.ops.fitter_direct import fit_reconstruct_direct as jax_frd
 from bmfr_tpu_torch import features
 from bmfr_tpu_torch.ops import fitter_direct
 from conftest import to_chw
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 #: three second-order cross terms, registered on both sides
 CROSS = {

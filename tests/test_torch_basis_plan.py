@@ -44,6 +44,7 @@ from bmfr_tpu_torch.ops import fitter, fitter_direct
 from bmfr_tpu_torch.ops.fitter_direct import (ONE, PLANE_CODE, SQUARE,
                                               VALUE, basis_plan, plane_table)
 from conftest import to_chw
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 CROSS = {
     "plan_test_position_xy": (lambda n, p: p[0] * p[1]),

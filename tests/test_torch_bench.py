@@ -27,6 +27,8 @@ from bmfr_tpu_torch.profile_stages import (eager_sequence,
                                            sequence_trace_report)
 from bmfr_tpu_torch.profiling import STAGES
 
+from torch_threads import one_intra_op_thread  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 JAX_BENCH = ast.parse((REPO / "bench.py").read_text())
 PORT_BENCH = ast.parse((REPO / "bmfr_tpu_torch" / "bench.py").read_text())
@@ -219,6 +221,69 @@ def test_module_without_card_exits_nonzero():
     assert "no CUDA device" in proc.stderr
     assert not [line for line in proc.stdout.splitlines()
                 if line.startswith("{")]
+
+
+def test_profiled_run_goes_through_checked_trace(monkeypatch):
+    """``bench.profiled_run`` on the CPU with a stub run of three frames
+    that counts three launches of kernel F: it traces through
+    ``profile_stages.checked_trace`` (the warm-up first, inside the same
+    trace and outside the run's tally), holds the run's tallied launches
+    to ``expected`` and takes busy and span from the device events inside
+    the run's range. A stand-in adds three device events to the CPU's
+    trace, and one outside the range that must not count."""
+    from torch.autograd.profiler_util import Interval
+
+    from bmfr_tpu_torch import profiling
+    from bmfr_tpu_torch.ops import _lib
+
+    F = bench.COUNTERS["filtered_tail"]
+    monkeypatch.setattr(F, "launches", 0)
+    order = []
+
+    def warm():
+        order.append(("warm", profiling._recording()))
+        _lib.count_launch(F)
+
+    def run():
+        order.append(("run", profiling._recording()))
+        _lib.count_launch(F, 3)
+
+    def kernel(start, end):
+        return types.SimpleNamespace(
+            name="filtered_tail_kernel", is_user_annotation=False,
+            device_type=torch.autograd.DeviceType.CUDA,
+            time_range=Interval(start, end))
+
+    calls = []
+
+    def with_device_events(label, acts, run_, device, **kwargs):
+        calls.append((label, kwargs["warm"], device))
+        events = checked_trace(label, acts, run_, device, **kwargs)
+        (rng,) = [e for e in events if e.name == profiling.RUN_RANGE]
+        t0 = rng.time_range.start
+        return list(events) + [kernel(t0 + 10, t0 + 40),
+                               kernel(t0 + 100, t0 + 130),
+                               kernel(t0 + 200, t0 + 260),
+                               kernel(t0 - 1e6, t0 - 1e6 + 500)]
+
+    checked_trace = bench.checked_trace
+    monkeypatch.setattr(bench, "checked_trace", with_device_events)
+    expected = {**dict.fromkeys(bench.COUNTERS, 0), "filtered_tail": 3}
+    log = io.StringIO()
+    span, busy = bench.profiled_run(warm, run, torch.device("cpu"), 3,
+                                    expected, log)
+    assert calls == [("[bench] profiled run", warm, torch.device("cpu"))]
+    assert order == [("warm", True), ("run", True)]
+    assert F.launches == 1      # the warm-up's; the run's went to the tally
+    assert busy == pytest.approx(120 / 3 / 1e3)
+    assert span == pytest.approx(250 / 3 / 1e3)
+    assert "1 outside the run's range left out" in log.getvalue()
+    with pytest.raises(RuntimeError, match="launches"):
+        bench.profiled_run(warm, run, torch.device("cpu"), 3,
+                           {**expected, "filtered_tail": 2}, log)
+    monkeypatch.setattr(bench, "checked_trace", checked_trace)
+    with pytest.raises(RuntimeError, match="no device event"):
+        bench.profiled_run(warm, run, torch.device("cpu"), 3, expected, log)
 
 
 def test_sequence_trace_report_on_cpu(capsys):

@@ -20,6 +20,8 @@ import torch
 
 from bmfr_tpu_torch.ops.fitter import cholesky_solve
 
+from torch_threads import one_intra_op_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 F, B = 10, 13
 

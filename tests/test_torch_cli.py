@@ -12,6 +12,8 @@ from bmfr_tpu_torch.cli import main
 from bmfr_tpu_torch.io.fixtures import synthetic_sequence
 from bmfr_tpu_torch.io.staging import stage_scene
 
+from torch_threads import one_intra_op_thread  # noqa: F401
+
 W, H, T = 64, 48, 3
 FAST = ["--device", "cpu", "--fitter-impl", "xla", "--chunk-frames", "2"]
 

@@ -36,6 +36,8 @@ from bmfr_tpu_torch.ops.frame import frame_tensor, has_history
 from bmfr_tpu_torch.ops.weighted_sum import weighted_sum_image
 from bmfr_tpu_torch.profiling import STAGES
 
+from torch_threads import one_intra_op_thread  # noqa: F401
+
 H, W = 48, 64
 FRONT = Path(bt.__file__).parent / "csrc" / "fitter_front.cuh"
 PATHS = {"default": {}, "flagship": bt.FLAGSHIP,

@@ -31,6 +31,7 @@ from bmfr_tpu_torch.ops.weighted_sum import (BAND, THREADS, TILE,
                                              weighted_sum,
                                              weighted_sum_reference)
 from conftest import to_chw
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 H, W = 48, 64
 INT_MAX = 2**31 - 1

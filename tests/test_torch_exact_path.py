@@ -26,6 +26,8 @@ from bmfr_tpu.pipeline.denoise import denoise_sequence as jax_denoise_sequence
 from bmfr_tpu.pipeline.state import TemporalState as JaxTemporalState
 from bmfr_tpu_torch.metrics import psnr
 
+from torch_threads import one_intra_op_thread  # noqa: F401
+
 EXACT_DB = 80.0
 FLAGSHIP_DB = 70.0
 #: the stage tolerances of tests/test_pipeline_vs_oracle.py, (rtol, atol)
@@ -107,11 +109,17 @@ def test_default_path_sequence_matches_jax(jax_default, tiny_scene):
     assert min(dbs) >= EXACT_DB, dbs
 
 
+@pytest.fixture(scope="module")
+def port_default(jax_default, tiny_scene):
+    """The port's per-frame step over the scene at ``jax_default``'s
+    configuration: every frame's outputs."""
+    return run_port_frames(bt.config_from_jax(jax_default[0]), tiny_scene)
+
+
 @pytest.mark.parametrize("t", [0, 1, 2])
-def test_default_path_stages_match_jax(jax_default, tiny_scene, t):
-    jcfg, frames, _ = jax_default
-    got = run_port_frames(bt.config_from_jax(jcfg), tiny_scene)[t]
-    want = frames[t]
+def test_default_path_stages_match_jax(jax_default, port_default, t):
+    got = port_default[t]
+    want = jax_default[1][t]
     # accept bits: allow rare FMA-borderline flips, as against the oracle
     ok = got["accept"] == want["accept"]
     assert ok.mean() > 0.995, ok.mean()

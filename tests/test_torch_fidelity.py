@@ -29,6 +29,8 @@ from bmfr_tpu_torch import fidelity, metrics
 from bmfr_tpu_torch.config import check_supported
 from bmfr_tpu_torch.io.fixtures import synthetic_sequence
 
+from torch_threads import one_intra_op_thread  # noqa: F401
+
 LIMITS = dict(position_limit_squared=0.03, normal_limit_squared=0.5)
 JAX_BASE = JaxConfig(image_width=64, image_height=48, **LIMITS)
 BASE = bt.config_from_jax(JAX_BASE)

@@ -22,6 +22,7 @@ from bmfr_tpu.ops.fitter_direct import (DMA_SLACK, _pads_for_direct,
                                         fit_reconstruct_cholesky as jax_fit)
 from bmfr_tpu_torch.ops.fitter_direct import fit_reconstruct_cholesky
 from conftest import to_chw
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 5e-3
 

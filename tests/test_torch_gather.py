@@ -11,6 +11,8 @@ from bmfr_tpu.ops import gather as jgather
 from bmfr_tpu.ops import warp as jwarp
 from bmfr_tpu_torch.ops import gather, warp
 
+from torch_threads import one_intra_op_thread  # noqa: F401
+
 #: NaN, +-inf, +-1e30, +-2**31 and the f32 neighbours of the int32 range
 EDGES = np.float32([np.nan, np.inf, -np.inf, 1e30, -1e30, 2.0**31, -(2.0**31),
                     2147483520.0, -2147483904.0, 3e9, -3e9, 0.0, -0.0, 0.5,

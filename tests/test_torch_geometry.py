@@ -13,6 +13,8 @@ from bmfr_tpu_torch.ops.fitter_pallas import (MAX_BUFFERS, MAX_SMEM,
                                               MIN_BUFFERS, THREADS,
                                               launch_geometry)
 
+from torch_threads import one_intra_op_thread  # noqa: F401
+
 
 @pytest.mark.parametrize("fn", [
     bt.zero_state, bt.PackedState.initial, bt.TemporalState.initial,

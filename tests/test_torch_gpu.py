@@ -1005,6 +1005,52 @@ def test_bench_on_card(cuda):
     assert record["warp_fallback_frames"] == 0
 
 
+def test_bench_profiled_run_holds_every_launch(cuda, monkeypatch):
+    """The bench's profiled run (``bench.profiled_run`` of
+    ``bench.sequence_run``) on a 1280x720x4 flagship sequence: the trace
+    it returns busy and span from holds, inside the run's range, one
+    device event of the port's kernels per launch of the run, kernel by
+    kernel, and busy and span are those range's events'."""
+    import io
+    from collections import Counter
+
+    from bmfr_tpu_torch import bench
+    from bmfr_tpu_torch.ops import _lib
+    from bmfr_tpu_torch.profiling import RUN_RANGE, device_events
+
+    T = 4
+    cfg = scene_cfg(720, 1280)
+    inputs, cams, offs = scene(720, 1280, cuda, frames=T)
+    bt.denoise_sequence(cfg, inputs, cams, offs)    # the capture, untraced
+    traced = []
+
+    def spy(*args, **kwargs):
+        traced.append(checked_trace(*args, **kwargs))
+        return traced[-1]
+
+    checked_trace = bench.checked_trace
+    monkeypatch.setattr(bench, "checked_trace", spy)
+    expected = bench.expected_launches(cfg, T)
+    log = io.StringIO()
+    span, busy = bench.profiled_run(
+        *bench.sequence_run(cfg, inputs, cams, offs), cuda, T, expected, log)
+    (events,) = traced
+    work = device_events(events, within=RUN_RANGE)
+    ours = Counter(k for e in work for k in _lib.KERNELS if k in e.name)
+    assert sum(ours.values()) == sum(expected.values())
+    assert ours["warp_blend_kernel"] == T - 1
+    for kernel in ("fit_chol_kernel", "reproject_kernel", "noisy_tail_kernel"):
+        assert ours[kernel] == T, (kernel, ours)
+    assert busy == pytest.approx(
+        sum(e.time_range.elapsed_us() for e in work) / T / 1e3)
+    assert span == pytest.approx(
+        (max(e.time_range.end for e in work)
+         - min(e.time_range.start for e in work)) / T / 1e3)
+    assert 0 < busy <= span
+    assert (f"device events of the port's kernels for "
+            f"{sum(expected.values())} launches counted") in log.getvalue()
+
+
 # ---- kernels F, G and H (the stages XLA fuses in the TPU step) ----
 
 #: odd sizes, a row, a column and sizes under kernel F's 32x16 tile (its

@@ -27,6 +27,8 @@ from bmfr_tpu_torch import color, features, geometry, metrics, rng
 from bmfr_tpu_torch.io.fixtures import synthetic_sequence
 from bmfr_tpu_torch.ops import blockify, warp
 
+from torch_threads import one_intra_op_thread  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 
 

@@ -24,6 +24,7 @@ from bmfr_tpu_torch.ops import fitter_pallas
 from bmfr_tpu_torch.ops.fitter import fit_blocks
 from bmfr_tpu_torch.ops.weighted_sum import weighted_sum, weighted_sum_image
 from conftest import to_chw
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 #: jitted, the frame traced: one compile per config instead of one per

@@ -30,6 +30,8 @@ from bmfr_tpu_torch import oracle, parity
 from bmfr_tpu_torch.io.fixtures import synthetic_sequence
 from bmfr_tpu_torch.oracle import reference, reference_vec
 
+from torch_threads import one_intra_op_thread  # noqa: F401
+
 LIMITS = dict(position_limit_squared=0.03, normal_limit_squared=0.5)
 CFG = bt.BMFRConfig(image_width=72, image_height=48, **LIMITS)
 

@@ -24,6 +24,8 @@ from bmfr_tpu.pipeline.denoise import (FrameInputs as JaxFrameInputs,
                                        denoise_sequence as jax_denoise_sequence)
 from bmfr_tpu_torch.metrics import psnr
 
+from torch_threads import one_intra_op_thread  # noqa: F401
+
 MIN_DB = 70.0
 MAX_ERR = 1e-2
 

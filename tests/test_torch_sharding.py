@@ -20,18 +20,9 @@ from bmfr_tpu.parallel import make_scene_mesh as jax_mesh
 from bmfr_tpu.parallel.sharding import denoise_scenes_jit as jax_sharded_jit
 from bmfr_tpu_torch import graft_entry
 
+from torch_threads import one_intra_op_thread  # noqa: F401
+
 CPU4 = ["cpu"] * 4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_intra_op_thread():
-    """One intra-op thread for this module's CPU runs: they are many small
-    ops (64x48), which a thread pool per op slows, and the more so beside
-    the suite's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def scene_batch(S, T, H, W, seed=0):

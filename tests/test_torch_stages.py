@@ -18,6 +18,7 @@ from bmfr_tpu_torch.ops.reproject import (accumulate_noisy_data,
                                           reproject_coords)
 from bmfr_tpu_torch.ops.taa import taa
 from conftest import to_chw
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-5
 H, W = 48, 64

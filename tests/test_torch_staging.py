@@ -24,6 +24,8 @@ from bmfr_tpu_torch.io.dataset import discover_scenes, probe_scene
 from bmfr_tpu_torch.io.fixtures import synthetic_sequence
 from bmfr_tpu_torch.metrics import psnr
 
+from torch_threads import one_intra_op_thread  # noqa: F401
+
 W, H, T = 64, 48, 3
 SERIES = dict(color="noisy", shading_normal="normals",
               world_position="positions", albedo="albedo")

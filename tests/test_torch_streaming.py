@@ -31,6 +31,8 @@ from bmfr_tpu_torch.io.dataset import discover_scenes
 from bmfr_tpu_torch.io.export import export_scene
 from bmfr_tpu_torch.metrics import psnr
 
+from torch_threads import one_intra_op_thread  # noqa: F401
+
 T = 5
 RTOL, ATOL, MIN_DB = 2e-3, 3e-3, 80.0
 KEYS = ("normals", "positions", "noisy", "albedo", "camera_matrices",
@@ -79,6 +81,11 @@ def flagship(tiny_cfg):
     return bt.config_from_jax(tiny_cfg).replace(**bt.FLAGSHIP)
 
 
+@pytest.fixture(scope="module")
+def flagship_ref(tiny_cfg, port_inputs):
+    return sequence(flagship(tiny_cfg), port_inputs)
+
+
 @pytest.mark.parametrize("chunk", [1, 2, 5])
 def test_stream_scene_equals_sequence_and_meets_jax(tiny_cfg, scene, chunk,
                                                     port_ref, jax_ref):
@@ -95,13 +102,12 @@ def test_stream_scene_equals_sequence_and_meets_jax(tiny_cfg, scene, chunk,
 
 
 def test_flagship_stream_scene_equals_sequence(tiny_cfg, scene,
-                                               port_inputs):
+                                               flagship_ref):
     """The flagship streams on a TemporalState carry and equals its
     denoise_sequence on the packed carry, ragged last chunk included."""
-    cfg = flagship(tiny_cfg)
-    got = bt.stream_scene(cfg, loader=loader_of(scene), frame_count=T,
-                          chunk_frames=2, device="cpu")
-    np.testing.assert_array_equal(got, sequence(cfg, port_inputs))
+    got = bt.stream_scene(flagship(tiny_cfg), loader=loader_of(scene),
+                          frame_count=T, chunk_frames=2, device="cpu")
+    np.testing.assert_array_equal(got, flagship_ref)
 
 
 def test_stream_scenes_from_disk_per_scene_limits(tiny_cfg, scene, port_ref,
@@ -195,7 +201,10 @@ def test_port_checkpoint_resumes_in_jax(tiny_cfg, scene, port_inputs,
 
 @pytest.mark.parametrize("variant", ["default", "flagship"])
 def test_port_checkpoint_resumes_bit_equal(tiny_cfg, port_inputs, variant,
-                                           tmp_path):
+                                           tmp_path, request):
+    """Frames 0-2, a checkpoint, and frames 3-4 resumed from it equal the
+    uninterrupted ``denoise_sequence`` (the module's run of each
+    configuration) bit for bit."""
     cfg = bt.config_from_jax(tiny_cfg)
     if variant == "flagship":
         cfg = flagship(tiny_cfg)
@@ -205,8 +214,9 @@ def test_port_checkpoint_resumes_bit_equal(tiny_cfg, port_inputs, variant,
     bt.save_state(path, state, 3)
     resumed, t0 = bt.load_state(path, device="cpu")
     _, tail = port_frames(cfg, resumed, port_inputs, range(t0, T))
-    np.testing.assert_array_equal(np.concatenate([head, tail]),
-                                  sequence(cfg, port_inputs))
+    want = request.getfixturevalue(
+        {"default": "port_ref", "flagship": "flagship_ref"}[variant])
+    np.testing.assert_array_equal(np.concatenate([head, tail]), want)
     with pytest.raises(TypeError, match="PackedState"):
         bt.save_state(path, bt.PackedState.initial(cfg, "cpu"), 0)
 

@@ -25,6 +25,7 @@ from bmfr_tpu_torch.ops.reproject import (noisy_tail, reproject_coords,
 from bmfr_tpu_torch.ops.tail import filtered_tail
 from conftest import to_chw
 from test_torch_stages import H, W, TOL, random_planes, taps_dict
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SKIPS = {"none": {}, "skip_taa": dict(skip_taa=True),
          "skip_second_accum": dict(skip_second_accum=True)}

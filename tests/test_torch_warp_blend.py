@@ -20,6 +20,8 @@ from bmfr_tpu_torch.ops.warp import pack_pairs_bf16
 from bmfr_tpu_torch.ops.warp_blend import (blend_from_taps, mask_bits,
                                            warp_blend)
 
+from torch_threads import one_intra_op_thread  # noqa: F401
+
 Ht, Wt = 48, 160
 
 
