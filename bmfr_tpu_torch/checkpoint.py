@@ -6,8 +6,8 @@ state only in device buffers; here the whole state is a
 number, saved in the JAX package's npz format: the keys ``frame`` (int64)
 and the six fields (``spp`` as uint8, the rest f32 ``[3, H, W]``), so a
 file written by either package loads in the other. Every configuration
-carries a ``TemporalState`` when asked to (the fused warp packs it at the
-read); a :class:`~bmfr_tpu_torch.pipeline.denoise.PackedState` is not
+carries a ``TemporalState`` when asked to (the fused warp reads it through
+bf16 taps, kernel I); a :class:`~bmfr_tpu_torch.pipeline.denoise.PackedState` is not
 saved, as in the JAX package.
 """
 

@@ -50,7 +50,14 @@
 //      the screen, and stores out, tone, result and the words, a warp
 //      128 B a plane.
 // Without TAA (frame 0, skip_taa) the result is the tone: one pass of K4
-// per pixel, one pixel a thread, no halo (filtered_tail_k4_kernel).
+// per pixel, one pixel a thread, no halo (filtered_tail_k4_kernel), which
+// also stores the tone as the result where the result has a buffer of its
+// own (a TemporalState carry's).
+// Out and result go where the wrapper points them: fresh tensors, or a
+// TemporalState carry's out and result, written in place as XLA writes
+// the step's donated outputs (bmfr_tpu/pipeline/denoise.py:279-287). The
+// stores are 4 B a thread along x, so no output needs more alignment
+// than its element's.
 //
 // Every value equals ops/tail.py::filtered_tail_reference's on the card:
 // each product, sum and quotient is rounded on its own (torch_ops.cuh),
@@ -137,7 +144,8 @@ struct Params {
   const float* prev_pixels;  // [2, H, W]
   float* out;
   float* tone;
-  float* result;             // unused without TAA (the result is the tone)
+  float* result;             // without TAA the tone, or a TemporalState
+                             // carry's result, which gets the tone too
   int32_t* pack;             // the state's [8, H, W] words, or null
   int H, W;
   float second_alpha, taa_alpha, taa_keep;
@@ -219,6 +227,7 @@ filtered_tail_k4_kernel(Params a) {
   for (int c = 0; c < 3; ++c) {
     a.out[c * n + p] = o[c];
     a.tone[c * n + p] = t[c];
+    if (a.result != a.tone) a.result[c * n + p] = t[c];
   }
   if (a.pack != nullptr) {
     a.pack[5 * n + p] = pack_pair(o[0], o[1]);

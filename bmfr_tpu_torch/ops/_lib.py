@@ -78,8 +78,9 @@ _SIGNATURES = {
     # positions, cam, offset, out, H, W, history, stream
     "bmfr_reproject": (_P,) * 4 + (_I,) * 3 + (_P,),
     # planes, noisy, positions, normals, accum, spp, accept, pack (or
-    # null), H, W, blend_alpha, history, stream
-    "bmfr_noisy_tail": (_P,) * 8 + (_I, _I, _F, _I, _P),
+    # null), carry positions, carry normals (or null), H, W, blend_alpha,
+    # history, stream
+    "bmfr_noisy_tail": (_P,) * 10 + (_I, _I, _F, _I, _P),
     # filtered, planes, albedo, spp, prev_pixels, out, tone, result, pack
     # (or null), H, W, second_alpha, taa_alpha, taa_keep, residual_bf16,
     # accum_prev, variant (0 K4 only, 1 thread loads, 2 TMA), stream
@@ -240,3 +241,34 @@ def check_tensor(t, name, dtype, shape, device):
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_destinations(pack, into, H, W, device):
+    """Raise unless at most one of a step's two state destinations is
+    given (``pack``, a :class:`~bmfr_tpu_torch.pipeline.denoise.
+    PackedState`'s words, or ``into``, a :class:`~bmfr_tpu_torch.
+    pipeline.state.TemporalState`) and ``into`` holds six distinct
+    contiguous tensors on ``device``: f32 ``[3, H, W]`` planes and the u8
+    ``[H, W]`` spp, no two sharing memory (``TemporalState.initial``
+    shares one zero plane among five fields), since kernels write them in
+    place."""
+    import torch
+
+    if pack is not None and into is not None:
+        raise ValueError("pack and into are exclusive: a step carries one "
+                         "state")
+    if into is None:
+        return
+    spans = []
+    for name, t in zip(into._fields, into):
+        if name == "spp":
+            check_tensor(t, "into.spp", torch.uint8, (H, W), device)
+        else:
+            check_tensor(t, f"into.{name}", torch.float32, (3, H, W), device)
+        start = t.data_ptr()
+        spans.append((start, start + t.numel() * t.element_size(), name))
+    spans.sort()
+    for (_, end, a), (start, _, b) in zip(spans, spans[1:]):
+        if start < end:
+            raise ValueError(f"into.{a} and into.{b} share memory: the "
+                             "destination needs six distinct tensors")

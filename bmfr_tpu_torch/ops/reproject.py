@@ -9,7 +9,7 @@ On the TPU, XLA fuses both into the jitted step. On the card each is a
 kernel of its own beside its plain PyTorch version:
 :func:`reproject_coords` (kernel H, ``csrc/reproject.cu``) and
 :func:`noisy_tail` (kernel G, ``csrc/noisy_tail.cu``: the K1 tail and the
-next state's words 0:5).
+next state's words 0:5, or its raw positions, normals, noisy and spp).
 """
 
 from __future__ import annotations
@@ -145,10 +145,13 @@ def accumulate_noisy_data(cfg, noisy, pfx, pfy, planes, frame,
 
 
 def noisy_tail_reference(cfg, noisy, prev_pixels, planes, positions,
-                         normals, frame, history=None, pack=None):
+                         normals, frame, history=None, pack=None, into=None):
     """Plain PyTorch version of :func:`noisy_tail`: the K1 tail
     (:func:`accumulate_noisy_data`, which rebuilds ``prev_pixels`` from
-    its planes) and, with ``pack``, words 0:5 of the state."""
+    its planes) and, with ``pack``, words 0:5 of the state or, with
+    ``into``, its positions, normals, noisy and spp."""
+    H, W = noisy.shape[-2:]
+    _lib.check_destinations(pack, into, H, W, noisy.device)
     k1 = accumulate_noisy_data(cfg, noisy, prev_pixels[0], prev_pixels[1],
                                planes, frame, history)
     if pack is not None:
@@ -156,53 +159,74 @@ def noisy_tail_reference(cfg, noisy, prev_pixels, planes, positions,
             pack_pairs_bf16([*positions, *normals], out=pack[0:3])
             pack_pairs_bf16([*k1["accum"], k1["spp"].float()],
                             out=pack[3:5])
+    if into is not None:
+        with stage("state_pack"):
+            into.positions.copy_(positions)
+            into.normals.copy_(normals)
+            into.noisy.copy_(k1["accum"])
+            into.spp.copy_(k1["spp"])
+        k1 = dict(k1, accum=into.noisy, spp=into.spp)
     return k1
 
 
 def noisy_tail(cfg, noisy, prev_pixels, planes, positions, normals, frame,
-               history=None, pack=None):
-    """The K1 tail and the next state's geometry and accum/spp words:
+               history=None, pack=None, into=None):
+    """The K1 tail and the next state's geometry and accum/spp:
     :func:`accumulate_noisy_data`'s dict (``accum f32[3,H,W]``, ``spp
     u8[H,W]``, ``prev_pixels f32[2,H,W]``, ``accept u8[H,W]``) and, with
     ``pack`` (a :class:`~bmfr_tpu_torch.pipeline.denoise.PackedState`'s
     i32 ``[8, H, W]``), words 0:3 (positions and normals) and 3:5
     (``accum`` and ``spp``) written in place as bf16 pairs; words 5:8 are
-    left alone.
+    left alone. With ``into`` (a :class:`~bmfr_tpu_torch.pipeline.state.
+    TemporalState` of six distinct contiguous tensors, never with
+    ``pack``), ``accum`` and ``spp`` are written into ``into.noisy`` and
+    ``into.spp`` (the dict holds those tensors) and this frame's
+    ``positions`` and ``normals`` into ``into.positions`` and
+    ``into.normals``; ``into.out`` and ``into.result`` are left alone.
 
     ``prev_pixels``: :func:`reproject_coords`'s map, passed through (at
     frame 0 it holds the pixels' own coordinates); ``planes``: the warp's
     13 blend planes (K1 reads 0:6, plane 5 the accept bits 0..15);
-    ``positions``/``normals``: this frame's, read only for the pack;
-    ``frame``/``history`` as :func:`accumulate_noisy_data` takes them.
+    ``positions``/``normals``: this frame's, read only for ``pack`` or
+    ``into``; ``frame``/``history`` as :func:`accumulate_noisy_data`
+    takes them.
 
     On a CUDA tensor this launches kernel G, bit-equal to
     :func:`noisy_tail_reference`; on a CPU tensor it runs that plain
     version. Any other device raises. Launch it after the warp has read
-    the previous words of ``pack`` (stream order keeps one buffer
-    sound)."""
+    the previous state in ``pack`` or ``into`` (stream order keeps one
+    buffer set sound)."""
     dev = noisy.device
     if dev.type == "cpu":
         return noisy_tail_reference(cfg, noisy, prev_pixels, planes,
-                                    positions, normals, frame, history, pack)
+                                    positions, normals, frame, history, pack,
+                                    into)
     if dev.type != "cuda":
         raise ValueError(f"noisy_tail: unsupported device {dev}")
     H, W = noisy.shape[-2:]
+    _lib.check_destinations(pack, into, H, W, dev)
     _lib.check_tensor(noisy, "noisy", torch.float32, (3, H, W), dev)
     _lib.check_tensor(prev_pixels, "prev_pixels", torch.float32, (2, H, W),
                       dev)
     _lib.check_tensor(planes, "planes", torch.float32, (13, H, W), dev)
-    if pack is not None:
+    if pack is not None or into is not None:
         _lib.check_tensor(positions, "positions", torch.float32, (3, H, W),
                           dev)
         _lib.check_tensor(normals, "normals", torch.float32, (3, H, W), dev)
+    if pack is not None:
         _lib.check_tensor(pack, "pack", torch.int32, (8, H, W), dev)
-    accum = torch.empty((3, H, W), dtype=torch.float32, device=dev)
-    spp = torch.empty((H, W), dtype=torch.uint8, device=dev)
+    if into is None:
+        accum = torch.empty((3, H, W), dtype=torch.float32, device=dev)
+        spp = torch.empty((H, W), dtype=torch.uint8, device=dev)
+    else:
+        accum, spp = into.noisy, into.spp
     accept = torch.empty((H, W), dtype=torch.uint8, device=dev)
     _lib.launch("bmfr_noisy_tail", planes.data_ptr(), noisy.data_ptr(),
                 positions.data_ptr(), normals.data_ptr(), accum.data_ptr(),
                 spp.data_ptr(), accept.data_ptr(),
-                None if pack is None else pack.data_ptr(), H, W,
+                None if pack is None else pack.data_ptr(),
+                None if into is None else into.positions.data_ptr(),
+                None if into is None else into.normals.data_ptr(), H, W,
                 float(np.float32(cfg.blend_alpha)),
                 int(has_history(frame, history)))
     _lib.count_launch(noisy_tail)

@@ -48,10 +48,13 @@ def filtered_tail_loader(W, addresses):
 
 
 def filtered_tail_reference(cfg, filtered, planes, albedo, spp, prev_pixels,
-                            frame, history=None, pack=None):
+                            frame, history=None, pack=None, into=None):
     """Plain PyTorch version of :func:`filtered_tail`:
     :func:`~bmfr_tpu_torch.ops.accumulate.accumulate_filtered_data`, then
-    :func:`~bmfr_tpu_torch.ops.taa.taa`, then with ``pack`` words 5:8."""
+    :func:`~bmfr_tpu_torch.ops.taa.taa`, then with ``pack`` words 5:8 or
+    with ``into`` its out and result."""
+    H, W = filtered.shape[-2:]
+    _lib.check_destinations(pack, into, H, W, filtered.device)
     with stage("k4_accumulate_filtered"):
         out, tone = accumulate_filtered_data(cfg, filtered, planes, albedo,
                                              spp, frame, history)
@@ -59,17 +62,28 @@ def filtered_tail_reference(cfg, filtered, planes, albedo, spp, prev_pixels,
     if pack is not None:
         with stage("state_pack"):
             pack_pairs_bf16([*out, *result], out=pack[5:8])
+    if into is not None:
+        with stage("state_pack"):
+            into.out.copy_(out)
+            into.result.copy_(result)
+        out, result = into.out, into.result
     return out, tone, result
 
 
 def filtered_tail(cfg, filtered, planes, albedo, spp, prev_pixels, frame,
-                  history=None, pack=None):
+                  history=None, pack=None, into=None):
     """K4 and K5 of one frame: ``(out, tone, result)``, f32 ``[3, H, W]``
     each (``result`` is ``tone`` itself where K5 passes the frame
-    through: no history, or ``skip_taa``) and, with ``pack`` (a
-    :class:`~bmfr_tpu_torch.pipeline.denoise.PackedState`'s i32 ``[8, H,
-    W]``), words 5:8 (out and result as bf16 pairs) written in place;
-    words 0:5 are left alone.
+    through, no history or ``skip_taa``, unless ``into`` is given) and,
+    with ``pack`` (a :class:`~bmfr_tpu_torch.pipeline.denoise.
+    PackedState`'s i32 ``[8, H, W]``), words 5:8 (out and result as bf16
+    pairs) written in place; words 0:5 are left alone. With ``into`` (a
+    :class:`~bmfr_tpu_torch.pipeline.state.TemporalState` of six distinct
+    contiguous tensors, never with ``pack``), ``out`` and ``result`` are
+    written into ``into.out`` and ``into.result`` (and returned as those
+    tensors; where K5 passes the frame through, ``into.result`` gets a
+    copy of the tone, so the carry never aliases ``tone``); its other
+    fields are left alone.
 
     ``filtered``: the fitter's output f32 ``[3, H, W]``; ``planes``: the
     warp's 13 blend planes (K4 reads 4 and 6:9, K5 9:13); ``albedo``: f32
@@ -86,10 +100,12 @@ def filtered_tail(cfg, filtered, planes, albedo, spp, prev_pixels, frame,
     dev = filtered.device
     if dev.type == "cpu":
         return filtered_tail_reference(cfg, filtered, planes, albedo, spp,
-                                       prev_pixels, frame, history, pack)
+                                       prev_pixels, frame, history, pack,
+                                       into)
     if dev.type != "cuda":
         raise ValueError(f"filtered_tail: unsupported device {dev}")
     H, W = filtered.shape[-2:]
+    _lib.check_destinations(pack, into, H, W, dev)
     _lib.check_tensor(filtered, "filtered", torch.float32, (3, H, W), dev)
     _lib.check_tensor(planes, "planes", torch.float32, (13, H, W), dev)
     _lib.check_tensor(albedo, "albedo", torch.float32, (3, H, W), dev)
@@ -100,9 +116,13 @@ def filtered_tail(cfg, filtered, planes, albedo, spp, prev_pixels, frame,
         _lib.check_tensor(pack, "pack", torch.int32, (8, H, W), dev)
     hist = has_history(frame, history)
     run_taa = hist and not cfg.skip_taa
-    out = torch.empty((3, H, W), dtype=torch.float32, device=dev)
-    tone = torch.empty_like(out)
-    result = torch.empty_like(out) if run_taa else tone
+    tone = torch.empty((3, H, W), dtype=torch.float32, device=dev)
+    if into is None:
+        out = torch.empty_like(tone)
+        result = torch.empty_like(tone) if run_taa else tone
+    else:
+        # the K4-only kernel stores the tone into a result of its own too
+        out, result = into.out, into.result
     variant = 0
     if run_taa:
         variant = VARIANTS[filtered_tail_loader(

@@ -7,15 +7,16 @@ Port of :mod:`bmfr_tpu.pipeline.denoise`. Per frame (opencl/bmfr.cpp:
    reproject_coords`);
 2. the warp branch, the 13 blend planes of the previous state:
    ``warp_mode="pallas"`` runs kernel A on the bf16 channel-pair
-   :class:`PackedState` (or on the pack of a raw-plane
-   :class:`~bmfr_tpu_torch.pipeline.state.TemporalState`, as the
-   streaming and checkpoint carry)
-   (:func:`~bmfr_tpu_torch.ops.warp_blend.warp_blend`); every other mode
-   runs kernel I, which gathers the taps of the raw-plane
-   :class:`~bmfr_tpu_torch.pipeline.state.TemporalState` in that mode
-   and blends them (:func:`~bmfr_tpu_torch.ops.warp_blend.
-   warp_blend_planes`);
-3. the K1 tail and the next packed state's words 0:5 (kernel G,
+   :class:`PackedState` (:func:`~bmfr_tpu_torch.ops.warp_blend.
+   warp_blend`); on a raw-plane :class:`~bmfr_tpu_torch.pipeline.state.
+   TemporalState` (the streaming and checkpoint carry, and every other
+   warp mode's) kernel I gathers the taps of its six tensors in place in
+   the warp mode, ``"packed_bf16"`` for ``"pallas"`` (each tap rounded to
+   bf16: what kernel A reads from the pack of the same planes, which
+   JAX packs at the read), and blends them (:func:`~bmfr_tpu_torch.ops.
+   warp_blend.warp_blend_planes`);
+3. the K1 tail and the next state's words 0:5 or raw positions,
+   normals, noisy and spp (kernel G,
    :func:`~bmfr_tpu_torch.ops.reproject.noisy_tail`);
 4. the fitter branch, the filtered image: ``fitter_impl="pallas_direct"``
    runs kernel B (``solver="cholesky"``) or kernel C (``"householder"``)
@@ -25,11 +26,14 @@ Port of :mod:`bmfr_tpu.pipeline.denoise`. Per frame (opencl/bmfr.cpp:
    fit_blocks`: kernel D, or the plain path for ``"xla"`` and the
    Cholesky solver) and reconstructs the image (kernel K,
    :func:`~bmfr_tpu_torch.ops.weighted_sum.weighted_sum`);
-5. K4, 6. K5 and the next packed state's words 5:8 (kernel F,
-   :func:`~bmfr_tpu_torch.ops.tail.filtered_tail`);
+5. K4, 6. K5 and the next state's words 5:8 or raw out and result
+   (kernel F, :func:`~bmfr_tpu_torch.ops.tail.filtered_tail`);
 7. the next state, of the type of the previous one: the state buffer
-   that kernels G and F packed in place, or a new :class:`TemporalState`
-   of this frame's planes.
+   that kernels G and F wrote in place (a :class:`PackedState`, or the
+   :class:`TemporalState` destination ``into`` that the compiled step
+   passes its carry as), or else a new :class:`TemporalState` of this
+   frame's planes, as the JAX step's is (the caller's state is never
+   written then).
 
 Kernels F, G, H, I, J and K stand for the stages that XLA fuses into
 the TPU's jitted step; ``plain=True`` runs the composition of the stage
@@ -117,17 +121,25 @@ def _warp_planes(cfg, state, inputs, pfx, pfy, history, plain):
                              device=inputs.noisy.device)
         return planes, torch.zeros(6, dtype=torch.int32)
     if cfg.warp_mode == "pallas":
-        if isinstance(state, TemporalState):
-            # the raw planes packed at the read, in the channel order of
-            # TemporalState.stacked(): rounding to bf16 here gives the
-            # words a PackedState carry stores, with no stacked f32 copy
+        if isinstance(state, PackedState):
+            warp = warp_blend_reference if plain else warp_blend
+            planes = warp(cfg, state.src8, inputs.positions, inputs.normals,
+                          pfx, pfy)
+        elif plain:
+            # JAX's shape: the raw planes packed at the read
+            # (warp_pallas.py:990-992), in TemporalState.stacked()'s
+            # channel order, then kernel A's plain version
             src8 = pack_pairs_bf16([*state.positions, *state.normals,
                                     *state.noisy, state.spp.float(),
                                     *state.out, *state.result])
+            planes = warp_blend_reference(cfg, src8, inputs.positions,
+                                          inputs.normals, pfx, pfy)
         else:
-            src8 = state.src8
-        warp = warp_blend_reference if plain else warp_blend
-        planes = warp(cfg, src8, inputs.positions, inputs.normals, pfx, pfy)
+            # kernel I rounds each tap to bf16 as it reads the six tensors
+            # in place: kernel A's planes on the pack, with no pack
+            planes = warp_blend_planes(cfg, state, inputs.positions,
+                                       inputs.normals, pfx, pfy,
+                                       "packed_bf16")
         # no tiers on the GPU: the kernel serves every pixel
         return planes, torch.tensor([0, 0, 0, 0, 0, H * W],
                                     dtype=torch.int32)
@@ -170,7 +182,7 @@ def _filter(cfg, inputs, accum, frame, plain):
 
 
 def denoise_frame(cfg, state, inputs: FrameInputs, prev_cam, pixel_offset,
-                  frame, *, plain=False, history=None):
+                  frame, *, plain=False, history=None, into=None):
     """Run the 5-stage chain for frame number ``frame``: a host int, or a
     0-d int32 tensor on the inputs' device (JAX's traced frame: the
     kernels read it there, and the jitter's indices are built from it).
@@ -185,12 +197,19 @@ def denoise_frame(cfg, state, inputs: FrameInputs, prev_cam, pixel_offset,
     a :class:`PackedState`; the next state has the same type. A packed
     buffer is overwritten with the next state (the warp reads the old
     words before the pack writes them, in stream order, so one buffer
-    suffices). On the fused warp a :class:`TemporalState` is packed at
-    the read into a fresh buffer, the words a packed carry would hold, so
-    both carries give the same outputs bit for bit. ``prev_cam``: f32
-    ``[4, 4]``; ``pixel_offset``: f32 ``[2]``. ``plain=True`` runs the
-    plain PyTorch versions of the kernels instead of the kernels (for
-    checking the kernels on the card).
+    suffices). On the fused warp a :class:`TemporalState` is read through
+    bf16 taps (kernel I in ``"packed_bf16"``; the plain path packs it at
+    the read, as JAX does), the values a packed carry holds, so both
+    carries give the same outputs bit for bit. A :class:`TemporalState`
+    step returns a new :class:`TemporalState` of this frame's tensors and
+    writes nothing of the caller's, as JAX's eager step does; with
+    ``into`` (a :class:`TemporalState` of six distinct contiguous
+    tensors, which may be ``state`` itself: the compiled step passes its
+    carry) kernels G and F write the next state into it in place, after
+    the warp read ``state`` (stream order), and it is returned.
+    ``prev_cam``: f32 ``[4, 4]``; ``pixel_offset``: f32 ``[2]``.
+    ``plain=True`` runs the plain PyTorch versions of the kernels instead
+    of the kernels (for checking the kernels on the card).
 
     Each stage runs inside a profiler range under the JAX package's
     scope name (:data:`~bmfr_tpu_torch.profiling.STAGES`): kernels H and
@@ -208,10 +227,14 @@ def denoise_frame(cfg, state, inputs: FrameInputs, prev_cam, pixel_offset,
     check_supported(cfg)
     if isinstance(state, PackedState) and cfg.warp_mode != "pallas":
         raise ValueError("a PackedState needs warp_mode='pallas'")
+    if into is not None and not isinstance(state, TemporalState):
+        raise ValueError("into takes the next state of a TemporalState step")
     hist = has_history(frame, history)
     history = "always" if hist else "never"
-    # the packed next state: kernel G writes words 0:5 and kernel F 5:8,
-    # both after the warp read the previous words (stream order)
+    # the next state in place: kernel G writes words 0:5 (or into's
+    # positions, normals, noisy, spp) and kernel F words 5:8 (or into's
+    # out, result), both after the warp read the previous state (stream
+    # order)
     pack = state.src8 if isinstance(state, PackedState) else None
     with stage("warp_taps"):
         prev_pixels = (reproject_coords_reference if plain
@@ -225,16 +248,18 @@ def denoise_frame(cfg, state, inputs: FrameInputs, prev_cam, pixel_offset,
     with stage("k1_accumulate_noisy"):
         k1 = (noisy_tail_reference if plain else noisy_tail)(
             cfg, inputs.noisy, prev_pixels, planes, inputs.positions,
-            inputs.normals, frame, history, pack=pack)
+            inputs.normals, frame, history, pack=pack, into=into)
     filtered, weights, mins_maxs = _filter(cfg, inputs, k1["accum"], frame,
                                            plain)
     with stage("k5_taa"):
         out, tone, result = (filtered_tail_reference if plain
                              else filtered_tail)(
             cfg, filtered, planes, inputs.albedo, k1["spp"],
-            k1["prev_pixels"], frame, history, pack=pack)
+            k1["prev_pixels"], frame, history, pack=pack, into=into)
 
-    if pack is None:
+    if into is not None:
+        state = into
+    elif pack is None:
         state = TemporalState(normals=inputs.normals,
                               positions=inputs.positions, noisy=k1["accum"],
                               spp=k1["spp"], out=out, result=result)

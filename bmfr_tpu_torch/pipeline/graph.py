@@ -14,12 +14,15 @@ them.
   fitter kernels and the jitter read there: :mod:`~bmfr_tpu_torch.ops.
   frame`), and the carry.
 - The carry: the step owns the state it carries, a buffer set of the
-  state's type. A :class:`~bmfr_tpu_torch.pipeline.denoise.PackedState`
-  is packed in place, as eagerly; a :class:`~bmfr_tpu_torch.pipeline.
-  state.TemporalState` is written last, by copies at the end of the graph
-  (eagerly its planes are this frame's own tensors, the input planes
-  among them, which the next frame's copy-in would overwrite). A state
-  from elsewhere is copied into the carry once.
+  state's type, written in place by the step's last kernels as XLA
+  writes the JAX step's donated outputs: a :class:`~bmfr_tpu_torch.
+  pipeline.denoise.PackedState`'s words by kernels G and F, as eagerly; a
+  :class:`~bmfr_tpu_torch.pipeline.state.TemporalState` (six distinct
+  buffers) as ``denoise_frame``'s destination ``into``, so G stores the
+  positions, normals, noisy colour and spp and F the out and result
+  planes there, after the warp read them (eagerly, without ``into``, the
+  next state is this frame's own tensors). The graph copies nothing into
+  the carry; a state from elsewhere is copied in once, before a replay.
 - Capture: the first call of a (state type, card, number of scenes)
   runs its frame eagerly on the static buffers (which also loads the
   kernel library and makes every one-time setting), then captures the
@@ -59,7 +62,6 @@ from ..ops.tail import filtered_tail
 from ..ops.warp import warp_rows
 from ..ops.warp_blend import warp_blend, warp_blend_planes
 from ..ops.weighted_sum import weighted_sum
-from ..profiling import stage
 from .denoise import FrameInputs, PackedState, denoise_frame
 from .state import TemporalState
 
@@ -117,15 +119,12 @@ class _Slot:
         self.current = None     # the state whose values the carry holds
 
     def body(self):
-        """The steady step on the static buffers, the carry written
-        last."""
-        state, out = denoise_frame(self.cfg, self.carry, self.inputs,
-                                   self.cam, self.offset, self.frame,
-                                   history="always")
-        if isinstance(state, TemporalState):
-            with stage("state_pack"):
-                for dst, src in zip(self.carry, state):
-                    dst.copy_(src)
+        """The steady step on the static buffers, the carry written in
+        place by its kernels."""
+        into = self.carry if isinstance(self.carry, TemporalState) else None
+        _, out = denoise_frame(self.cfg, self.carry, self.inputs, self.cam,
+                               self.offset, self.frame, history="always",
+                               into=into)
         return dict(result=out["result"], tone=out["tone"],
                     warp_stats=out["warp_stats"])
 
@@ -208,8 +207,8 @@ class CompiledStep:
     outputs)`` takes what :func:`~bmfr_tpu_torch.pipeline.denoise.
     denoise_frame` takes (``frame`` a host int or a 0-d int32 tensor on
     the card) on CUDA tensors; ``outputs`` holds ``result``, ``tone`` and
-    ``warp_stats``, the graph's own buffers, which the next call
-    overwrites. ``donate=True``: the returned state is the step's carry,
+    ``warp_stats``, the graph's own buffers (on a ``TemporalState`` the
+    result is the carry's ``result``), which the next call overwrites. ``donate=True``: the returned state is the step's carry,
     updated in place by the next call (JAX's donated carry);
     ``donate=False``: a copy of it, and every state the caller holds
     stays intact. One step object serves one thread at a time.

@@ -14,7 +14,8 @@ while a loader thread reads the next chunk:
   (:func:`make_chunk_runner`), carrying a
   :class:`~bmfr_tpu_torch.pipeline.state.TemporalState` across chunks,
   as the JAX package does, whatever the configuration (the fused warp
-  packs it at the read);
+  reads it through bf16 taps, kernel I, and kernels G and F write the
+  compiled step's carry in place);
 - ``record_stream`` keeps the caching allocator from handing an uploaded
   tensor to other work while the compute stream still reads it;
 - each chunk's results go back into one pinned host buffer on the compute

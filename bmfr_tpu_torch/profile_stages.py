@@ -174,7 +174,8 @@ def stage_report(cfg, state, inputs, cam, off, reps, device):
         cfg, filtered, planes, inputs.albedo, k1["spp"], k1["prev_pixels"],
         f, pack=pack))
     idle("state_pack", "in kernels G and F" if pack is not None
-         else "no pack: the state is this frame's planes")
+         else "eager: the state is this frame's planes (the compiled "
+              "step's G and F write its carry)")
 
     eager_state = (PackedState(state.src8.clone())
                    if isinstance(state, PackedState) else state)
@@ -335,7 +336,7 @@ KERNEL_PATH_NOTE = ("on a card kernel H runs inside warp_taps, G (the K1 "
                     "tail and words 0:5) inside k1_accumulate_noisy and F "
                     "(K4 + K5 and words 5:8) inside k5_taa: "
                     "k4_accumulate_filtered and state_pack hold no work "
-                    "there but the TemporalState carry's copies")
+                    "there: G and F write either carry in place")
 
 
 def _print_stages(title, per, other, total, scale):
@@ -392,9 +393,9 @@ def trace_report(cfg, state, inputs, cam, off, reps, device):
 #: headline)
 SEQUENCE_TOLERANCE = 0.05
 #: the compiled step's own work, which the eager pass has not: the copies
-#: that fill its static input buffers each frame and write a
-#: ``TemporalState`` carry back (``pipeline/graph.py``), 0.038 ms a
-#: 1280x720 frame, by name in a trace
+#: that fill its static input buffers each frame (``pipeline/graph.py``;
+#: kernels G and F write either carry in place), 0.038 ms a 1280x720
+#: frame, by name in a trace
 STEP_COPY = "Memcpy DtoD (Device -> Device)"
 
 

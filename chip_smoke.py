@@ -35,7 +35,8 @@ writes the 16 frames to a temporary directory in the TUNI layout
 camera header with a tight position limit), finds both with
 ``discover_scenes``, streams the flagship and the default path from disk
 in chunks of 5 (``stream_scene``, whose chunk runner replays its
-compiled step: launch counts, bit-equal to ``denoise_sequence``),
+compiled step on a ``TemporalState`` carry, the flagship's warp kernel I
+in packed_bf16: launch counts, bit-equal to ``denoise_sequence``),
 resumes the flagship from a checkpoint at frame 8 through
 ``make_denoise_frame``'s compiled step (bit-equal), streams both
 directories at once (``stream_scenes``: the
@@ -103,7 +104,7 @@ flagship and the default path through ``denoise_scenes_sharded`` over
 (bit-equal to the per-scene ``denoise_sequence``, launch counts held),
 timing each card-frame of S scenes (one graph of S steps); ``[entry]``
 runs ``graft_entry.entry()``'s step eagerly, captured and replayed
-(equal); ``[dryrun]`` runs ``dryrun_multichip`` on the card and on a
+(equal; on its TemporalState kernel I, not A); ``[dryrun]`` runs ``dryrun_multichip`` on the card and on a
 mesh naming it four times (every scene equal to its per-scene run).
 ``[staging]`` (after ``[stream]``) stages the orbit scene with
 ``io/staging.py::stage_scene``, the EXR codec cycled per file over ZIP,
@@ -138,8 +139,19 @@ splits the flagship's 60-frame sequence by stage
 compiled sequence's busy time and span) and fails unless the eager total
 with the copies the compiled step adds lies within 5 % of the compiled
 busy time and each trace holds one device event of the port's kernels
-per launch counted (as ``[stages *]`` does). Each phase prints its
-seconds.
+per launch counted (as ``[stages *]`` does). ``[carry]`` (after
+``[bench trace]``, on the same 60-frame orbit scene) runs
+``denoise_sequence`` from a ``TemporalState`` (the stream's, the
+checkpoint's and ``graft_entry``'s carry) on the graft entry's
+configuration (the Householder flagship), the Cholesky flagship and the
+default path, and the flagships also from a ``PackedState``: per run the
+launches (every count set to 0 just before; the fused warp's
+``TemporalState`` runs kernel I in packed_bf16 59 times and kernel A
+never), the headline-style ms/frame (median of 5 runs), and a checked
+trace's busy ms/frame, device operations and copies a frame; the
+flagships' 60 results equal on the two carries bit for bit
+(``scripts/torch_carry_ab.py`` runs the same cells on a parent
+checkout). Each phase prints its seconds.
 
 The last line is the JSON contract ``{"ok": true, "device": {...}}``;
 any failed check exits non-zero before it. Without a CUDA device it
@@ -273,6 +285,14 @@ DEFAULT_LAUNCHES = {"warp_blend_planes": FRAMES - 1,
 #: summation order): |kernel - plain| <= K_TOL * sum_f |basis_f w_f| per
 #: pixel, what an f32 10-term dot product's rounding allows either way
 K_TOL = 2e-6
+#: the Cholesky flagship on a TemporalState carry (the stream's and the
+#: checkpoint's): kernel I in packed_bf16 on every frame with history and
+#: kernel A on none; its counters and their launches over FRAMES frames
+TEMPORAL_FLAGSHIP = (
+    {"warp_blend": warp_blend, "warp_blend_planes": warp_blend_planes,
+     "fit_reconstruct_cholesky": fit_reconstruct_cholesky},
+    {"warp_blend": 0, "warp_blend_planes": FRAMES - 1,
+     "fit_reconstruct_cholesky": FRAMES})
 
 
 def with_tails(counters, expected, frames):
@@ -546,8 +566,10 @@ def tail_phase(flagship, exact, inputs, cams, offs, field):
     variant on both paths (``filtered_tail_loader`` and the kernel's name
     in a trace). Returns ``(errs, ms, dev_ms, bounds)`` by letter: the
     largest |err|, (wrapper, plain) ms per call, device ms per call and
-    each kernel's bound (the flagship's, and F's on the default path's
-    f32 residual, no words, as "F default")."""
+    each kernel's bound (the flagship's, F's on the default path's f32
+    residual, no words, as "F default", and G's storing into the default
+    path's TemporalState carry, as "G into", whose stores G and F are held
+    to their plain versions' there too)."""
     from bmfr_tpu_torch.pipeline.denoise import _filter, _warp_planes
 
     t0 = time.perf_counter()
@@ -608,6 +630,30 @@ def tail_phase(flagship, exact, inputs, cams, offs, field):
                 and "TmaLoads" in f_names[0],
                 f"tail kernels {label}: F did not run its TMA-fed variant")
         if label == "default":
+            # the compiled step's TemporalState destination: G stores the
+            # raw positions, normals, noisy and spp into it, F out and
+            # result
+            intos = [bt.TemporalState(*(torch.empty_like(t) for t in (
+                cur.normals, cur.positions, cur.noisy, k1["spp"], cur.noisy,
+                cur.noisy))) for _ in range(2)]
+            k1i = noisy_tail(*args_g, into=intos[0])
+            noisy_tail_reference(*args_g, into=intos[1])
+            args_fi = (cfg, filtered, planes, cur.albedo, k1i["spp"], pp, 1)
+            filtered_tail(*args_fi, into=intos[0])
+            filtered_tail_reference(*args_fi, into=intos[1])
+            for name, a, b in zip(intos[0]._fields, *intos):
+                key = "F" if name in ("out", "result") else "G"
+                errs[key] = max(errs[key], check_same(
+                    {"G": "noisy_tail", "F": "filtered_tail"}[key],
+                    f"default into.{name}", a, b))
+            dev_ms["G into"] = kernel_device_ms(
+                lambda: noisy_tail(*args_g, into=intos[0]),
+                "noisy_tail_kernel")
+            # the reads, accept and the carry's positions, normals, noisy
+            # and spp: 98 B a pixel
+            bounds["G into"] = bound(
+                nbytes(planes[0:6], cur.noisy, cur.positions, cur.normals,
+                       k1["accept"], *intos[0][:4]), 30 * n_px)
             dev_ms["F default"] = kernel_device_ms(run_f[0],
                                                    "filtered_tail_kernel")
             # no words: the reads and out, tone and result (~101 B a
@@ -1021,10 +1067,7 @@ def _stream_phase(root, sc, inputs, cams, offs, flagship, exact, dev,
     # ---- flagship and default path streamed, vs denoise_sequence ----
     outs, refs = {}, {}
     for label, cfg, counters, expected in (
-            ("flagship", flagship,
-             {"warp_blend": warp_blend,
-              "fit_reconstruct_cholesky": fit_reconstruct_cholesky},
-             {"warp_blend": FRAMES - 1, "fit_reconstruct_cholesky": FRAMES}),
+            ("flagship", flagship, *TEMPORAL_FLAGSHIP),
             ("default", exact,
              {"fit_blocks_pallas": fit_blocks_pallas, "warp_rows": warp_rows,
               **DEFAULT_KERNELS},
@@ -1228,10 +1271,7 @@ def _staging_phase(root, sc, flagship, exact, dev, zip_timing):
     # ---- the flagship and the default path streamed from the staged
     # scene, vs denoise_sequence on the expected arrays in memory ----
     for label, cfg, counters, want in (
-            ("flagship", flagship,
-             {"warp_blend": warp_blend,
-              "fit_reconstruct_cholesky": fit_reconstruct_cholesky},
-             {"warp_blend": FRAMES - 1, "fit_reconstruct_cholesky": FRAMES}),
+            ("flagship", flagship, *TEMPORAL_FLAGSHIP),
             ("default", exact,
              {"fit_blocks_pallas": fit_blocks_pallas, "warp_rows": warp_rows,
               **DEFAULT_KERNELS},
@@ -1944,7 +1984,9 @@ def entry_phase():
     fn, args = graft_entry.entry()
     cfg = graft_entry.entry_config()
     eager = bt.denoise_frame(cfg, *args, history="always")[1]["result"]
-    counted = (warp_blend, fit_reconstruct_direct, *TAILS.values())
+    # a TemporalState: kernel I in packed_bf16, not A
+    counted = (warp_blend, warp_blend_planes, fit_reconstruct_direct,
+               *TAILS.values())
     for k in counted:
         k.launches = 0
     t0 = time.perf_counter()
@@ -1959,11 +2001,11 @@ def entry_phase():
     print(f"[entry] {gpu_line()}: fn at {cfg.image_width}x"
           f"{cfg.image_height} ({cfg.warp_mode} warp, {cfg.fitter_impl} "
           f"{cfg.solver}): eager, captured ({capture_s:.2f} s with the "
-          f"capture) and replayed equal: {same}; launches A, C, H, G, F "
-          f"{launches}; "
+          f"capture) and replayed equal: {same}; launches A, I, C, H, G, "
+          f"F {launches}; "
           f"{ms:.4f} ms a replayed call")
     require(same, "entry: the captured step differs from the eager one")
-    require(launches == (2,) * 5, f"entry: launches {launches}")
+    require(launches == (0,) + (2,) * 5, f"entry: launches {launches}")
     require(tuple(first.shape) == (3, 720, 1280)
             and bool(torch.isfinite(first).all()), "entry: result")
     return dict(bit_equal=same, launches=launches, capture_s=capture_s,
@@ -2133,6 +2175,150 @@ def bench_trace_phase(flagship, inputs, cams, offs, dev):
         require(False, f"[bench trace] {e}")
     print(f"[bench trace] the phase took {time.perf_counter() - t0:.1f} s")
     return rows
+
+
+#: the [carry] phase's timed runs of each whole sequence
+CARRY_REPS = 5
+
+
+def carry_launches(cfg, frames, state_type):
+    """Each counted wrapper's launches in one ``denoise_sequence`` of
+    ``frames`` frames from a ``state_type`` carry: the bench's
+    (``bench.expected_launches``, a PackedState on the fused warp), with
+    kernel I in packed_bf16 in place of kernel A on the fused warp's
+    TemporalState."""
+    n = bench.expected_launches(cfg, frames)
+    if state_type is bt.TemporalState and cfg.warp_mode == "pallas":
+        n["warp_blend_planes"], n["warp_blend"] = n["warp_blend"], 0
+    return n
+
+
+def carry_cell(label, cfg, inputs, cams, offs, state_type, reps=CARRY_REPS):
+    """One configuration on one carry over the whole sequence on the card,
+    through ``denoise_sequence`` from ``state_type``'s zero state (frame 0
+    eager, the compiled step replayed): the first run's results and the
+    launches of each counted wrapper (every count set to 0 just before);
+    the headline-style ms/frame of ``reps`` more runs (host clock up to the
+    checksum's host read, as the bench times a run), their median; and
+    one more run through ``profile_stages.checked_trace`` (the same
+    frames eagerly and the run first, in the trace; one device event of
+    the port's kernels per launch): busy ms/frame, device operations a
+    frame and copies a frame inside the run's range, and the run's
+    launches. It uses only what the port has had since its checked bench
+    trace, so ``scripts/torch_carry_ab.py`` runs it on an older tree."""
+    from torch.profiler import ProfilerActivity
+
+    from bmfr_tpu_torch.profile_stages import checked_trace
+
+    dev = inputs.noisy.device
+    T = inputs.noisy.shape[0]
+
+    def initial():
+        return (bt.TemporalState.initial(cfg, dev)
+                if state_type is bt.TemporalState
+                else bt.PackedState.initial(cfg, dev))
+
+    def run():
+        return bt.denoise_sequence(cfg, inputs, cams, offs,
+                                   initial_state=initial()).sum().item()
+
+    def warm():
+        st = initial()
+        for t in range(T):
+            st, _ = bt.denoise_frame(cfg, st, frame_of(inputs, t),
+                                     cams[max(t - 1, 0)], offs[t], t)
+        run()
+
+    for fn in bench.COUNTERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = bt.denoise_sequence(cfg, inputs, cams, offs,
+                              initial_state=initial())
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in bench.COUNTERS.items()}
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run()
+        times.append((time.perf_counter() - t0) / T * 1e3)
+    tally = {}
+    log = io.StringIO()
+    events = checked_trace(f"[carry] {label} {state_type.__name__}",
+                           [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                           run, dev, warm=warm, log=log, launches=tally)
+    work = device_events(events, within=RUN_RANGE)
+    del events
+    return dict(
+        out=out, launches=launches, first_run_s=first_s,
+        ms_per_frame=float(np.median(times)), reps_ms=times,
+        busy_ms_per_frame=sum(e.time_range.elapsed_us() for e in work)
+        / T / 1e3,
+        ops_per_frame=len(work) / T,
+        copies_per_frame=sum("Memcpy" in e.name for e in work) / T,
+        trace_launches={k: tally.get(fn, 0)
+                        for k, fn in bench.COUNTERS.items()},
+        trace_check=log.getvalue().strip())
+
+
+def carry_configs(flagship, exact):
+    """The [carry] phase's configurations: the graft entry's (the
+    Householder flagship on a TemporalState, ``graft_entry.entry()``), the
+    Cholesky flagship (the stream's, the checkpoint's, the CLI's with
+    ``--warp-mode pallas``) and the default path."""
+    return (("graft entry", graft_entry.entry_config()),
+            ("flagship", flagship), ("default", exact))
+
+
+def carry_phase(flagship, exact, inputs, cams, offs):
+    """[carry]: each of :func:`carry_configs` over the 60-frame orbit scene
+    on a TemporalState carry and, on the fused warp, on a PackedState
+    (:func:`carry_cell`): each run's launches held to
+    :func:`carry_launches` (the fused warp's TemporalState: kernel I 59,
+    kernel A 0), each trace to one device event a launch, the flagships'
+    60 results on the two carries equal bit for bit, every result finite
+    and of the scene's shape."""
+    t0 = time.perf_counter()
+    print(f"[carry] {gpu_line()}")
+    T = inputs.noisy.shape[0]
+    rec = {}
+    for label, cfg in carry_configs(flagship, exact):
+        carries = ((bt.TemporalState, bt.PackedState)
+                   if cfg.warp_mode == "pallas" else (bt.TemporalState,))
+        outs = {}
+        for state_type in carries:
+            name = state_type.__name__
+            cell = carry_cell(label, cfg, inputs, cams, offs, state_type)
+            out = outs[name] = cell.pop("out")
+            expected = carry_launches(cfg, T, state_type)
+            print(f"[carry] {label} on a {name}: "
+                  f"{cell['ms_per_frame']:.4f} ms/frame (median of "
+                  f"{CARRY_REPS} runs: "
+                  + ", ".join(f"{m:.4f}" for m in cell["reps_ms"])
+                  + f"), checked busy {cell['busy_ms_per_frame']:.4f} "
+                  f"ms/frame, {cell['ops_per_frame']:.1f} device operations "
+                  f"a frame ({cell['copies_per_frame']:.1f} copies); "
+                  f"launches {cell['launches']}; first run "
+                  f"{cell['first_run_s']:.2f} s")
+            print(cell["trace_check"])
+            require(cell["launches"] == expected
+                    and cell["trace_launches"] == expected,
+                    f"[carry] {label} {name}: launches {cell['launches']}, "
+                    f"traced {cell['trace_launches']}, expected {expected}")
+            require(tuple(out.shape) == (T, 3, HEIGHT, WIDTH)
+                    and bool(torch.isfinite(out).all()),
+                    f"[carry] {label} {name}: result")
+            rec[f"{label} {name}"] = cell
+        if len(outs) == 2:
+            same = bool(torch.equal(outs["TemporalState"],
+                                    outs["PackedState"]))
+            print(f"[carry] {label}: the {T} results on the TemporalState "
+                  f"carry bit-equal to the PackedState carry's: {same}")
+            require(same, f"[carry] {label}: the carries differ")
+            rec[f"{label} bit_equal"] = same
+        del outs
+    print(f"[carry] the phase took {time.perf_counter() - t0:.1f} s")
+    return rec
 
 
 def main():
@@ -2463,6 +2649,9 @@ def main():
     # sequence split by stage ----
     paths["bench"], orbit60 = bench_phase(flagship, exact, hh_flagship, dev)
     paths["bench trace"] = bench_trace_phase(flagship, *orbit60, dev)
+    # ---- [carry]: the TemporalState carry on the card, beside the
+    # PackedState, at 60 frames ----
+    paths["carry"] = carry_phase(flagship, exact, *orbit60)
     del orbit60
     bench_runs = paths["bench"]
 
@@ -2576,6 +2765,11 @@ def main():
     next(k for k in kernels if k["name"] == "filtered_tail").update(
         loader="tma", default_device_ms=dev_ms["F default"],
         default_bound_ms=bounds["F default"][0])
+    # G storing into the default path's TemporalState carry ([tail
+    # kernels]), the compiled step's destination since the raw carry is
+    # written in place
+    next(k for k in kernels if k["name"] == "noisy_tail").update(
+        into_device_ms=dev_ms["G into"], into_bound_ms=bounds["G into"][0])
     print(json.dumps({"paths": paths, "build_s": build_s, "basis": basis,
                       "kernel_device_ms": dev_ms,
                       "fit_blocks_direct_ms": ms["C blocks"]}))

@@ -10,7 +10,8 @@
 - two more configurations of the non-fused warp and the block fitter;
 - the flagship with ``solver="householder"`` (kernel A's and kernel C's
   plain versions) against the interpret-mode JAX path, >= 70 dB per
-  frame, as tests/test_torch_pipeline.py holds the Cholesky flagship.
+  frame, as tests/test_torch_pipeline.py holds the Cholesky flagship, on
+  the ``PackedState`` and on the ``TemporalState`` carry (one JAX run).
 """
 
 import jax
@@ -165,7 +166,10 @@ def test_other_exact_variants_match_jax(tiny_cfg, tiny_scene, variant):
     assert min(dbs) >= EXACT_DB, dbs
 
 
-def test_householder_flagship_matches_jax(tiny_cfg, tiny_scene):
+@pytest.fixture(scope="module")
+def jax_householder_flagship(tiny_cfg, tiny_scene):
+    """JAX's flagship with ``solver="householder"`` over the scene (its
+    interpret-mode kernels): ``(config, results)``."""
     jcfg = tiny_cfg.replace(warp_mode="pallas", fitter_impl="pallas_direct",
                             solver="householder",
                             residual_dtype="bfloat16").validate()
@@ -174,11 +178,43 @@ def test_householder_flagship_matches_jax(tiny_cfg, tiny_scene):
         JaxFrameInputs(*(jnp.asarray(np.moveaxis(sc[k], -1, -3)) for k in
                          ("normals", "positions", "noisy", "albedo"))),
         jnp.asarray(sc["camera_matrices"]), jnp.asarray(sc["pixel_offsets"])))
-    got = bt.denoise_sequence(bt.config_from_jax(jcfg), torch_inputs(sc),
+    return jcfg, want
+
+
+def householder_flagship_meets_jax(jax_householder_flagship, tiny_scene,
+                                   carry):
+    jcfg, want = jax_householder_flagship
+    cfg = bt.config_from_jax(jcfg)
+    sc = tiny_scene
+    initial = (bt.TemporalState.initial(cfg, "cpu") if carry == "temporal"
+               else None)
+    got = bt.denoise_sequence(cfg, torch_inputs(sc),
                               torch.from_numpy(sc["camera_matrices"]),
-                              torch.from_numpy(sc["pixel_offsets"])).numpy()
+                              torch.from_numpy(sc["pixel_offsets"]),
+                              initial_state=initial).numpy()
     dbs = [psnr(got[t], want[t]) for t in range(len(want))]
     errs = [float(np.abs(got[t] - want[t]).max()) for t in range(len(want))]
-    print("householder flagship vs JAX: PSNR dB", dbs, "max |err|", errs)
+    print(f"householder flagship ({carry} carry) vs JAX: PSNR dB", dbs,
+          "max |err|", errs)
     assert np.isfinite(got).all()
     assert min(dbs) >= FLAGSHIP_DB, dbs
+    return got
+
+
+def test_householder_flagship_matches_jax(jax_householder_flagship,
+                                          tiny_scene):
+    householder_flagship_meets_jax(jax_householder_flagship, tiny_scene,
+                                   "packed")
+
+
+def test_householder_flagship_temporal_carry_matches_jax(
+        jax_householder_flagship, tiny_scene):
+    """The flagship on the raw-plane TemporalState carry (the graft
+    entry's, the stream's and the checkpoint's: kernel I's plain version
+    in ``"packed_bf16"``, no pack) against the same JAX run, and bit for
+    bit against the PackedState carry."""
+    got = householder_flagship_meets_jax(jax_householder_flagship,
+                                         tiny_scene, "temporal")
+    packed = householder_flagship_meets_jax(jax_householder_flagship,
+                                            tiny_scene, "packed")
+    np.testing.assert_array_equal(got, packed)

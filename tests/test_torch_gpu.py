@@ -405,7 +405,10 @@ def test_stream_scene_on_card_equals_sequence(cuda, tmp_path, variant):
     launches the path's kernels once per frame."""
     H, W, T = 64, 96, 5
     cfg = scene_cfg(H, W)
-    counters = {"flagship": (warp_blend, fit_reconstruct_cholesky),
+    # the stream carries a TemporalState: the flagship warps it with
+    # kernel I in packed_bf16, never kernel A
+    counters = {"flagship": (warp_blend_planes, fit_reconstruct_cholesky,
+                             warp_blend),
                 "default": (fit_blocks_pallas,)}[variant]
     if variant == "default":
         cfg = bt.BMFRConfig(image_width=W, image_height=H,
@@ -416,7 +419,7 @@ def test_stream_scene_on_card_equals_sequence(cuda, tmp_path, variant):
         fn.launches = 0
     got = bt.stream_scene(cfg, sd, chunk_frames=2, device=cuda)
     launches = [fn.launches for fn in counters]
-    assert launches == ([T - 1, T] if variant == "flagship" else [T])
+    assert launches == ([T - 1, T, 0] if variant == "flagship" else [T])
     want = bt.denoise_sequence(cfg, *on_card(sc, cuda)).cpu().numpy()
     np.testing.assert_array_equal(got, want)
 
@@ -439,10 +442,11 @@ def test_staged_scene_every_codec_streams_bit_equal(cuda, tmp_path):
                      ("world_position", "positions"), ("albedo", "albedo")):
         np.testing.assert_array_equal(data[key].view(np.uint32),
                                       expected[buf].view(np.uint32))
-    warp_blend.launches = fit_reconstruct_cholesky.launches = 0
+    warp_blend.launches = warp_blend_planes.launches = 0
+    fit_reconstruct_cholesky.launches = 0
     got = bt.stream_scene(cfg, sd, chunk_frames=2, device=cuda)
-    assert [warp_blend.launches, fit_reconstruct_cholesky.launches] == [
-        T - 1, T]
+    assert [warp_blend_planes.launches, fit_reconstruct_cholesky.launches,
+            warp_blend.launches] == [T - 1, T, 0]
     inputs = bt.frame_inputs_from_numpy(
         expected["shading_normal"], expected["world_position"],
         expected["color"], expected["albedo"], cuda)
@@ -1648,3 +1652,158 @@ def test_warp_blend_kernel_wraps_at_int_max(cuda, H, W):
     torch.cuda.synchronize()
     assert bool(got.isnan().any())
     assert same_values(got, want)
+
+
+# ---- the TemporalState carry written in place (kernel I on the flagship's
+# raw carry, kernels G and F storing the next state into it) ----
+
+def packed_of(state):
+    """The channel-pair pack of a TemporalState's 16 channels."""
+    return pack_pairs_bf16([*state.positions, *state.normals, *state.noisy,
+                            state.spp.float(), *state.out, *state.result])
+
+
+@pytest.mark.parametrize("field", ["orbit frame 1", "extremes"])
+def test_temporal_warp_kernel_is_kernel_a_on_the_pack(cuda, field):
+    """At 1280x720, kernel I in packed_bf16 on a raw TemporalState equals
+    kernel A on the state's pack, NaN where NaN: on orbit frame 1 after
+    the flagship's frame 0, and on a random state with NaN and infinite
+    values at coordinates off screen, NaN, infinite and saturated."""
+    H, W = 720, 1280
+    cfg = scene_cfg(H, W)
+    if field == "orbit frame 1":
+        inputs, cams, offs = scene(H, W, cuda, frames=2)
+        state, _ = bt.denoise_frame(cfg, bt.TemporalState.initial(cfg, cuda),
+                                    bt.FrameInputs(*(x[0] for x in inputs)),
+                                    cams[0], offs[0], 0)
+        pos, nrm = inputs.positions[1], inputs.normals[1]
+        pfx, pfy = reproject_coords(cfg, pos, cams[0], offs[1])
+    else:
+        state = raw_state(H, W, cuda, 11)
+        cur = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (6, H, W)).astype(np.float32)).to(cuda)
+        pos, nrm = cur[0:3], cur[3:6]
+        pfx, pfy = tap_field(H, W, cuda)
+    n0 = (warp_blend_planes.launches, warp_blend.launches)
+    got = warp_blend_planes(cfg, state, pos, nrm, pfx, pfy, "packed_bf16")
+    want = warp_blend(cfg, packed_of(state), pos, nrm, pfx, pfy)
+    assert (warp_blend_planes.launches, warp_blend.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    torch.cuda.synchronize()
+    assert same_values(got, want)
+    if field == "extremes":
+        assert bool(got.isnan().any())
+    else:
+        assert bool(torch.isfinite(got).all())
+
+
+def distinct_carry(H, W, dev):
+    """Six distinct tensors of a TemporalState, filled with a sentinel."""
+    return bt.TemporalState(
+        *(torch.full((3, H, W), 7.0, device=dev) for _ in range(3)),
+        torch.full((H, W), 99, dtype=torch.uint8, device=dev),
+        *(torch.full((3, H, W), 7.0, device=dev) for _ in range(2)))
+
+
+@pytest.mark.parametrize("H,W", [(37, 53), (720, 1280)])
+@pytest.mark.parametrize("case", ["frame 0", "frame 3", "skip_taa"])
+def test_tail_kernels_into_the_carry_equal_them_without(cuda, H, W, case):
+    """Kernels G and F with the destination ``into`` (a TemporalState)
+    store the values they give without it, NaN where NaN, into the
+    carry's six tensors; the pass-through result is a copy of the tone,
+    never the tone; F's threads loader at 37x53 and TMA at 1280x720."""
+    from bmfr_tpu_torch.ops.reproject import noisy_tail_reference
+
+    (cfg, filtered, planes, albedo, _, pp, frame), _ = filtered_tail_case(
+        H, W, cuda, "bfloat16", case, "temporal")
+    rng = np.random.default_rng(H + W)
+    cur = torch.from_numpy(rng.standard_normal((9, H, W)).astype(
+        np.float32)).to(cuda)
+    noisy = with_extremes(cur[6:9].abs(), 2)
+    into = distinct_carry(H, W, cuda)
+    n0 = (noisy_tail.launches, filtered_tail.launches)
+    k1 = noisy_tail(cfg, noisy, pp, planes, cur[0:3], cur[3:6], frame)
+    k1i = noisy_tail(cfg, noisy, pp, planes, cur[0:3], cur[3:6], frame,
+                     into=into)
+    want1 = noisy_tail_reference(cfg, noisy, pp, planes, cur[0:3],
+                                 cur[3:6], frame)
+    got = filtered_tail(cfg, filtered, planes, albedo, k1["spp"], pp, frame)
+    goti = filtered_tail(cfg, filtered, planes, albedo, k1i["spp"], pp,
+                         frame, into=into)
+    assert (noisy_tail.launches, filtered_tail.launches) == (
+        n0[0] + 2, n0[1] + 2)
+    torch.cuda.synchronize()
+    assert k1i["accum"] is into.noisy and k1i["spp"] is into.spp
+    for k in ("accum", "spp", "accept"):
+        assert same_values(k1i[k], k1[k]) and same_values(k1[k], want1[k])
+    assert torch.equal(into.positions, cur[0:3])
+    assert torch.equal(into.normals, cur[3:6])
+    assert goti[0] is into.out and goti[2] is into.result
+    assert goti[2].data_ptr() != goti[1].data_ptr()
+    for name, g, w in zip(("out", "tone", "result"), goti, got):
+        assert same_values(g, w), name
+
+
+@pytest.mark.parametrize("path", ["flagship", "householder_flagship"])
+def test_flagship_temporal_carry_launches_kernel_i(cuda, path):
+    """denoise_sequence from a TemporalState on the fused warp launches
+    kernel I (packed_bf16) on every frame with history and kernel A on
+    none, and equals the PackedState carry's frames bit for bit."""
+    H, W, T = 64, 96, 6
+    cfg = path_cfg(path, H, W)
+    inputs, cams, offs = scene(H, W, cuda, frames=T)
+    packed = bt.denoise_sequence(cfg, inputs, cams, offs)
+    warp_blend.launches = warp_blend_planes.launches = 0
+    got = bt.denoise_sequence(cfg, inputs, cams, offs,
+                              initial_state=bt.TemporalState.initial(cfg,
+                                                                     cuda))
+    assert (warp_blend_planes.launches, warp_blend.launches) == (T - 1, 0)
+    assert torch.equal(got, packed)
+
+
+@pytest.mark.parametrize("path,carry", [
+    ("flagship", "temporal"), ("flagship", "packed"),
+    ("householder_flagship", "temporal"), ("default", "temporal")])
+def test_compiled_step_copies_only_its_inputs(cuda, path, carry):
+    """A replay of the compiled step copies the frame's four planes, the
+    camera and the offset into its static buffers and nothing into the
+    carry, on either carry: kernels G and F write the next state in
+    place. Counted as device copies in a trace of four replays."""
+    from torch.profiler import ProfilerActivity
+
+    from bmfr_tpu_torch.ops import _lib
+    from bmfr_tpu_torch.pipeline.graph import CompiledStep
+    from bmfr_tpu_torch.profile_stages import STEP_COPY
+    from bmfr_tpu_torch.profiling import RUN_RANGE, device_events, traced_run
+
+    H, W, T = 64, 96, 6
+    cfg = path_cfg(path, H, W)
+    inputs, cams, offs = scene(H, W, cuda, frames=T)
+    initial = (bt.PackedState if carry == "packed"
+               else bt.TemporalState).initial
+    state, _ = bt.denoise_frame(cfg, initial(cfg, cuda),
+                                bt.FrameInputs(*(x[0] for x in inputs)),
+                                cams[0], offs[0], 0)
+    step = CompiledStep(cfg)
+    # the capture, and the one copy of a state from elsewhere
+    held = [step.run(state, bt.FrameInputs(*(x[1] for x in inputs)),
+                     cams[0], offs[1], 1)[0]]
+
+    def replays():
+        for t in range(2, T):
+            held[0] = step.run(held[0],
+                               bt.FrameInputs(*(x[t] for x in inputs)),
+                               cams[t - 1], offs[t], t)[0]
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    with traced_run([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                    warm=replays) as prof:
+        replays()
+    work = device_events(prof.events(), within=RUN_RANGE)
+    copies = [e.name for e in work if "Memcpy" in e.name]
+    assert copies == [STEP_COPY] * (6 * (T - 2)), copies
+    ours = sum(1 for e in work for k in _lib.KERNELS if k in e.name)
+    kernels = {"default": 7, "flagship": 5, "householder_flagship": 5}[path]
+    assert ours == kernels * (T - 2)
+    assert isinstance(held[0], initial.__self__)
