@@ -1,0 +1,63 @@
+"""``BENCHMARK.json`` and the files it names, found by name:
+``benchmark/configs/<config>.json``, ``benchmark/traffic/<mix>.json``
+and ``benchmark/metrics/<metric>.py``."""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+ROOT = HERE.parent
+
+
+def load_benchmark(root=ROOT):
+    with open(Path(root) / "BENCHMARK.json") as f:
+        return json.load(f)
+
+
+def cell(bench, workload):
+    for w in bench["workloads"]:
+        if w["name"] == workload:
+            return w
+    raise SystemExit(f"no workload {workload!r} in BENCHMARK.json (it has "
+                     f"{[w['name'] for w in bench['workloads']]})")
+
+
+def _json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def config(bench, name):
+    """The configuration file of configuration ``name``, as a dict."""
+    for c in bench["configs"]:
+        if c["name"] == name:
+            return _json(ROOT / c["file"])
+    raise SystemExit(f"no configuration {name!r} in BENCHMARK.json")
+
+
+def traffic(name):
+    """The traffic file of mix ``name``, as a dict."""
+    return _json(HERE / "traffic" / f"{name}.json")
+
+
+def reports(metric, workload, bench):
+    """Whether cell ``workload`` reports ``metric`` (a metric entry): it
+    lists the cell, or lists none and its ``moves`` (or, for an
+    end-to-end metric, itself) is reported there."""
+    if "workloads" in metric:
+        return workload in metric["workloads"]
+    if "moves" in metric:
+        moved = next(m for m in bench["end_to_end"]
+                     if m["name"] == metric["moves"])
+        return reports(moved, workload, bench)
+    return True
+
+
+def end_to_end(bench, workload):
+    return [m for m in bench["end_to_end"] if reports(m, workload, bench)]
+
+
+def per_layer(bench, workload):
+    return [m for m in bench["per_layer"] if reports(m, workload, bench)]

@@ -1,0 +1,115 @@
+"""Whether the timed path's outputs are correct: the program's results and
+its carried state against the plain reference (:mod:`.reference.bmfr`).
+
+What is compared: the results of ``sampled`` frames drawn from the seed
+among the last ``ring`` frames of the window, and the state the program
+carries out of its last frame. The reference works the state out again
+from the same rendered inputs: it starts from the zero state ``lead``
+frames before the first sampled frame (or at frame 0, where the run
+started there) and runs every frame up to the last one. Every blend of
+the recurrence keeps at most 0.9 of the frame before (K1 and K5 0.8, K4
+0.9, opencl/bmfr.cl:421-429, :836-839, :964), so what the zero state
+leaves after 320 frames is below 1e-14 of a value, and the spp count
+saturates at 255 after 254 frames of history.
+
+The numbers (each with its limit from the configuration's file, key
+``correct``): the relative RMS gap of the sampled results, and of the
+carried ``out`` (K4's accumulation, the second half of the state the
+next frame reads), both downstream of every stage: the reprojection and
+the warp of the carried state, K1 and its accept tests, the fit, the
+reconstruction, K4 and K5.
+"""
+
+from __future__ import annotations
+
+import random
+
+import torch
+
+from .reference import bmfr
+
+
+def carried(config, state):
+    """The program's carried state as float32 ``{field: tensor}``: a
+    ``PackedState``'s words (two bf16 a word, channel 2k low and 2k+1 high;
+    positions 0:3, normals 3:6, noisy 6:9, spp 9, out 10:13, result 13:16)
+    or a ``TemporalState``'s six tensors."""
+    if config["carry"] == "PackedState":
+        words = state.src8
+        P, H, W = words.shape
+        halves = words.contiguous().view(torch.bfloat16).view(P, H, W, 2)
+        ch = halves.permute(0, 3, 1, 2).reshape(2 * P, H, W).float()
+        return {"positions": ch[0:3], "normals": ch[3:6], "noisy": ch[6:9],
+                "spp": ch[9], "out": ch[10:13], "result": ch[13:16]}
+    return {k: getattr(state, k).float() for k in bmfr.STATE_FIELDS}
+
+
+def rel_rms(got, want):
+    """sqrt(sum (got - want)^2 / sum want^2), in float64; NaN where
+    ``got`` holds a NaN."""
+    got, want = got.double(), want.double()
+    return float(torch.sqrt(((got - want) ** 2).sum() / (want ** 2).sum()))
+
+
+def replay(s, clip, t_from, t_to, keep, precision="highest"):
+    """The reference over frames ``t_from..t_to`` from the zero state
+    (frame ``t_from`` reads no history): ``(state after t_to, {t: result
+    for t in keep})``."""
+    state = bmfr.zero_state(s, clip.cams[0].device)
+    results = {}
+    with torch.no_grad(), bmfr.tf32_off():
+        for t in range(t_from, t_to + 1):
+            inputs, cam, off = clip.args(t)
+            state, out = bmfr.frame_step(
+                s, state, inputs.positions, inputs.normals, inputs.noisy,
+                inputs.albedo, cam, off, t, history=t > t_from,
+                precision=precision)
+            if t in keep:
+                results[t] = out["result"]
+    return state, results
+
+
+def pick(seed, frames, sampled):
+    """``sampled`` of ``frames`` drawn from the seed, in order."""
+    return sorted(random.Random(seed).sample(sorted(frames),
+                                             min(sampled, len(frames))))
+
+
+def numbers(results, carry, ref_results, ref_state):
+    """Every number the comparison can read, by name: the compared ones
+    and what the limits' readings look at beside them (the widest gaps,
+    how many values lie more than 1e-4 off, the other state planes)."""
+    diffs = [(results[t].double() - ref_results[t].double()).abs()
+             for t in ref_results]
+    out = (carry["out"].double() - ref_state["out"].double()).abs()
+    return {
+        "result_rel_rms": max(rel_rms(results[t], ref_results[t])
+                              for t in ref_results),
+        "result_gap": max(float(d.max()) for d in diffs),
+        "result_values_off": max(int((d > 1e-4).sum()) for d in diffs),
+        "out_rel_rms": rel_rms(carry["out"], ref_state["out"]),
+        "out_gap": float(out.max()),
+        "out_values_off": int((out > 1e-4).sum()),
+        "noisy_rel_rms": rel_rms(carry["noisy"], ref_state["noisy"]),
+        "spp_differ_pct": float((carry["spp"] != ref_state["spp"])
+                                .double().mean() * 100),
+    }
+
+
+def compare(s, clip, kept, carry, last_t, seed, check):
+    """``(all numbers, {name: (number, limit)} of those compared)``.
+    ``kept``: ``{t: result}`` of the window's last frames; ``carry``: the
+    program's state after frame ``last_t``; ``check``: the traffic's
+    ``check`` (``sampled``, ``lead``) with the configuration's ``limits``
+    (a number with its limit for each number compared)."""
+    picks = pick(seed, kept, check["sampled"])
+    t_from = max(0, picks[0] - check["lead"])
+    ref_state, ref_results = replay(s, clip, t_from, last_t, set(picks))
+    got = numbers({t: kept[t] for t in picks}, carry, ref_results,
+                  ref_state)
+    return got, {k: (got[k], lim) for k, lim in check["limits"].items()}
+
+
+def passed(compared):
+    """Each number within its limit (a NaN never is)."""
+    return all(v <= lim for v, lim in compared.values())
