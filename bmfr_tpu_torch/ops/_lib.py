@@ -217,6 +217,20 @@ def count_launch(fn, n=1):
         fn.launches += n
 
 
+def count_launches(counts):
+    """:func:`count_launch` of each ``(fn, n)`` in ``counts`` (a replay's
+    captured launches), under one taking of the lock, or into this
+    thread's tally when one is open."""
+    tally = getattr(_TALLY, "counts", None)
+    if tally is not None:
+        for fn, n in counts:
+            tally[fn] = tally.get(fn, 0) + n
+        return
+    with _COUNT_LOCK:
+        for fn, n in counts:
+            fn.launches += n
+
+
 @contextlib.contextmanager
 def tally_launches():
     """Count this thread's launches into a dict of their own, by wrapper,

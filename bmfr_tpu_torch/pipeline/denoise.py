@@ -74,7 +74,7 @@ from ..ops.warp_blend import (BLEND_PLANES, warp_blend, warp_blend_planes,
                               warp_blend_planes_reference,
                               warp_blend_reference)
 from ..ops.weighted_sum import weighted_sum, weighted_sum_reference
-from ..profiling import stage
+from ..profiling import count, span, stage
 from .state import TemporalState
 
 #: Top and left padding of the JAX package's padded state layout
@@ -293,7 +293,9 @@ def make_denoise_frame(cfg, *, plain=False, donate=True):
     from the card. Frame 0, the CPU and ``plain=True`` run
     :func:`denoise_frame` eagerly. ``frame``/``history`` as
     :func:`denoise_frame` takes them. ``result`` is the caller's own
-    tensor.
+    tensor. Each call is a :func:`~bmfr_tpu_torch.profiling.span`
+    ``entry.step`` (given ``frame`` when it is a host int) around
+    ``entry.clone`` (the result's copy) or ``entry.eager``.
 
     ``donate=True``: the step owns the state it returns and updates it in
     place on the next call, the counterpart of JAX's donated carry and
@@ -309,18 +311,23 @@ def make_denoise_frame(cfg, *, plain=False, donate=True):
     compiled = CompiledStep(cfg, donate=donate)
 
     def step(state, inputs, prev_cam, pixel_offset, frame, history=None):
-        eager = (plain or inputs.noisy.device.type != "cuda"
-                 or not has_history(frame, history))
-        if not eager:
-            state, outputs = compiled.run(state, inputs, prev_cam,
-                                          pixel_offset, frame)
-            return state, outputs["result"].clone()
-        if not donate and isinstance(state, PackedState):
-            state = PackedState(state.src8.clone())
-        state, outputs = denoise_frame(cfg, state, inputs, prev_cam,
-                                       pixel_offset, frame, plain=plain,
-                                       history=history)
-        return state, outputs["result"]
+        with span("entry.step", frame if isinstance(frame, int) else None):
+            eager = (plain or inputs.noisy.device.type != "cuda"
+                     or not has_history(frame, history))
+            if not eager:
+                state, outputs = compiled.run(state, inputs, prev_cam,
+                                              pixel_offset, frame)
+                with span("entry.clone"):
+                    result = outputs["result"].clone()
+                    count("copies")
+                return state, result
+            with span("entry.eager"):
+                if not donate and isinstance(state, PackedState):
+                    state = PackedState(state.src8.clone())
+                state, outputs = denoise_frame(cfg, state, inputs, prev_cam,
+                                               pixel_offset, frame,
+                                               plain=plain, history=history)
+            return state, outputs["result"]
 
     return step
 

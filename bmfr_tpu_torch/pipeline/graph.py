@@ -36,8 +36,14 @@ them.
 - Launch counters: the kernel wrappers count their launches in Python,
   which a replay does not run; the capture tallies its launches apart
   (:func:`~bmfr_tpu_torch.ops._lib.tally_launches`, per thread) and each
-  replay adds them, so the counts read as if the step ran eagerly, also
-  while other threads launch.
+  replay adds the nonzero ones in one call
+  (:func:`~bmfr_tpu_torch.ops._lib.count_launches`), so the counts read
+  as if the step ran eagerly, also while other threads launch.
+- Spans and the copy counter (:mod:`~bmfr_tpu_torch.profiling`):
+  ``step.run`` around a call, ``step.load`` around each slot's load and
+  ``step.replay`` around the graph's launch and the counters' advance;
+  ``copies`` counts the load's copies and fill (and a returned copy of
+  the carry).
 
 The same kernels run in the same order with the same inputs, so a replay
 equals the eager step bit for bit.
@@ -62,6 +68,7 @@ from ..ops.tail import filtered_tail
 from ..ops.warp import warp_rows
 from ..ops.warp_blend import warp_blend, warp_blend_planes
 from ..ops.weighted_sum import weighted_sum
+from ..profiling import count, span
 from .denoise import FrameInputs, PackedState, denoise_frame
 from .state import TemporalState
 
@@ -134,30 +141,41 @@ class _Slot:
 
     def load(self, state, inputs, prev_cam, pixel_offset, frame):
         """Fill the static buffers (and the carry, unless it already holds
-        ``state``) on the card."""
-        cfg, dev = self.cfg, self.device
-        H, W = cfg.image_height, cfg.image_width
-        if not self._holds(state):
-            for name, dst, src in zip(type(state)._fields, self.carry, state):
-                _check(src, name, tuple(dst.shape), dst.dtype, dev)
+        ``state``) on the card; counts each copy and fill in ``copies``
+        (:func:`~bmfr_tpu_torch.profiling.count`)."""
+        with span("step.load"):
+            cfg, dev = self.cfg, self.device
+            H, W = cfg.image_height, cfg.image_width
+            copies = len(FrameInputs._fields) + 3   # + camera, offset, frame
+            if not self._holds(state):
+                for name, dst, src in zip(type(state)._fields, self.carry,
+                                          state):
+                    _check(src, name, tuple(dst.shape), dst.dtype, dev)
+                    dst.copy_(src)
+                copies += len(self.carry)
+            for name, dst, src in zip(FrameInputs._fields, self.inputs,
+                                      inputs):
+                _check(src, name, (3, H, W), torch.float32, dev)
                 dst.copy_(src)
-        for name, dst, src in zip(FrameInputs._fields, self.inputs, inputs):
-            _check(src, name, (3, H, W), torch.float32, dev)
-            dst.copy_(src)
-        _check(prev_cam, "prev_cam", (4, 4), torch.float32, dev)
-        _check(pixel_offset, "pixel_offset", (2,), torch.float32, dev)
-        self.cam.copy_(prev_cam)
-        self.offset.copy_(pixel_offset)
-        if isinstance(frame, torch.Tensor):
-            _check(frame, "frame", (), torch.int32, dev)
-            self.frame.copy_(frame)
-        else:
-            self.frame.fill_(int(frame))
+            _check(prev_cam, "prev_cam", (4, 4), torch.float32, dev)
+            _check(pixel_offset, "pixel_offset", (2,), torch.float32, dev)
+            self.cam.copy_(prev_cam)
+            self.offset.copy_(pixel_offset)
+            if isinstance(frame, torch.Tensor):
+                _check(frame, "frame", (), torch.int32, dev)
+                self.frame.copy_(frame)
+            else:
+                self.frame.fill_(int(frame))
+            count("copies", copies)
 
     def hand_out(self, donate):
-        """The state after the step: the carry itself, or a copy."""
-        self.current = (self.carry if donate else
-                        type(self.carry)(*(t.clone() for t in self.carry)))
+        """The state after the step: the carry itself, or a copy (counted
+        in ``copies``)."""
+        if donate:
+            self.current = self.carry
+        else:
+            self.current = type(self.carry)(*(t.clone() for t in self.carry))
+            count("copies", len(self.carry))
         return self.current
 
 
@@ -188,11 +206,12 @@ class _Graph:
             with _lib.tally_launches() as tally:
                 self.graph, self.outputs = capture(self.body, self.device)
             self.capture_s = time.perf_counter() - t0
-            self.counts = [tally.get(fn, 0) for fn in COUNTED]
+            self.counts = [(fn, tally[fn]) for fn in COUNTED
+                           if tally.get(fn)]
         else:
-            self.graph.replay()
-            for fn, n in zip(COUNTED, self.counts):
-                _lib.count_launch(fn, n)
+            with span("step.replay"):
+                self.graph.replay()
+                _lib.count_launches(self.counts)
             outputs = self.outputs
         return [(slot.hand_out(donate), out)
                 for slot, out in zip(self.slots, outputs)]
@@ -233,6 +252,11 @@ class CompiledStep:
         return out
 
     def run_scenes(self, calls):
+        with span("step.run"):
+            return self._graph(calls).step(calls, self.donate)
+
+    def _graph(self, calls):
+        """The checked calls' graph (made at the first call of its key)."""
         if not calls:
             raise ValueError("run_scenes needs at least one scene")
         state_type = type(calls[0][0])
@@ -251,7 +275,7 @@ class CompiledStep:
         if g is None:
             g = self._graphs[key] = _Graph(self.cfg, state_type, dev,
                                            len(calls))
-        return g.step(calls, self.donate)
+        return g
 
     @property
     def capture_seconds(self):

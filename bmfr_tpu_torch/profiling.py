@@ -11,16 +11,29 @@ Kernel-level device times come from ``torch.profiler`` (``chip_smoke.py``,
 here. :func:`stage` marks a stage of the frame as a profiler range under
 the JAX package's scope name, so a trace groups each kernel under its
 stage.
+
+:func:`span` marks a layer's host work inside the per-frame step (the
+names of :data:`SPANS`): a no-op unless :func:`recording` keeps spans in
+memory or a profiler records, where it is an operator-scope range on the
+trace's host timeline. :func:`count` and :func:`counters` are named
+counters, always on (``copies``: the device copies and fills the
+compiled step enqueues outside its kernels, and the entry's copy of the
+result).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
+import threading
 import time
 from dataclasses import dataclass, field
 
 import torch
 import torch.autograd.profiler as _autograd_profiler
+
+from .ops import _lib
 
 #: The stages of :func:`~bmfr_tpu_torch.pipeline.denoise.denoise_frame`,
 #: in frame order, under the JAX package's scope names
@@ -122,6 +135,154 @@ def launch_range(name):
     if _OP_RANGE is not None and _recording():
         return _OP_RANGE(name)
     return _NO_RANGE
+
+
+#: the spans of the per-frame step, by layer (PERF.md §3): the entry,
+#: ``make_denoise_frame``'s step (``entry.step``, the result's copy
+#: ``entry.clone``, the eager frame ``entry.eager``), and the compiled
+#: step (``CompiledStep.run_scenes`` ``step.run``, a slot's ``_Slot.load``
+#: ``step.load``, the graph's launch and the launch counters' advance
+#: ``step.replay``)
+SPANS = ("entry.step", "entry.clone", "entry.eager", "step.run",
+         "step.load", "step.replay")
+#: the spans one :func:`recording` keeps at most; later ones are dropped
+RECORD_LIMIT = 1 << 18
+
+_ACTIVE = None                  # the open Recording
+_OPEN = threading.local()       # this thread's open recorded spans
+_COUNTS = collections.Counter()
+
+
+class Recording:
+    """The spans kept by one :func:`recording` block. ``records``: one
+    ``(name, start_ns, end_ns, parent, frame)`` per span, in the order
+    the spans opened, on ``time.perf_counter_ns()``'s clock; ``parent``
+    is the index of the enclosing recorded span on the same thread (None
+    for a root), ``frame`` the frame the root span was given (None if
+    none); a span still open when the block ends stays None. ``dropped``:
+    the spans left out once ``limit`` were kept."""
+
+    def __init__(self, limit):
+        self.records = [None] * limit
+        self.dropped = 0
+        self.limit = limit
+        self._next = itertools.count()
+        self._open = True
+
+    def _close(self):
+        self._open = False
+        del self.records[min(next(self._next), self.limit):]
+
+
+class _Span:
+    __slots__ = ("name", "frame", "rec", "op", "index", "parent", "start")
+
+    def __init__(self, name, frame, rec):
+        self.name, self.frame, self.rec = name, frame, rec
+        self.op = (_OP_RANGE(name) if _OP_RANGE is not None and _recording()
+                   else None)
+
+    def __enter__(self):
+        if self.op is not None:
+            self.op.__enter__()
+        rec = self.rec
+        if rec is not None:
+            i = next(rec._next)
+            if i >= rec.limit:
+                with _lib._COUNT_LOCK:
+                    rec.dropped += 1
+                self.rec = None
+                return self
+            stack = getattr(_OPEN, "stack", None)
+            if stack is None:
+                stack = _OPEN.stack = []
+            if stack:
+                self.parent, self.frame = stack[-1]
+            else:
+                self.parent = None
+            self.index = i
+            stack.append((i, self.frame))
+            self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        if rec is not None:
+            end = time.perf_counter_ns()
+            _OPEN.stack.pop()
+            if rec._open:
+                rec.records[self.index] = (self.name, self.start, end,
+                                           self.parent, self.frame)
+        if self.op is not None:
+            self.op.__exit__(*exc)
+        return False
+
+
+def span(name, frame=None):
+    """A span of host work named ``name`` (one of :data:`SPANS`).
+
+    Off (no :func:`recording` open, no profiler recording) it returns the
+    shared no-op context. Inside :func:`recording` it keeps ``(name,
+    start_ns, end_ns, parent, frame)``; ``frame``, given to a root span,
+    is shared by the spans inside it. While a profiler records it is
+    also an operator-scope range of its name (as :func:`launch_range`),
+    on the trace's host timeline beside the device's events."""
+    rec = _ACTIVE
+    if rec is None and not _autograd_profiler._is_profiler_enabled:
+        return _NO_RANGE
+    return _Span(name, frame, rec)
+
+
+@contextlib.contextmanager
+def recording(limit=RECORD_LIMIT):
+    """Keep every :func:`span` of the process in memory for the block's
+    duration; yields the :class:`Recording`. One at a time."""
+    global _ACTIVE
+    if _ACTIVE is not None:
+        raise RuntimeError("spans are already being recorded")
+    rec = _ACTIVE = Recording(limit)
+    try:
+        yield rec
+    finally:
+        _ACTIVE = None
+        rec._close()
+
+
+def self_ns(records):
+    """Each record's self time in ns: its duration less the part of it
+    that its child spans (the records whose ``parent`` is its index)
+    cover; None where the record is None."""
+    children = collections.defaultdict(list)
+    for r in records:
+        if r is not None and r[3] is not None:
+            children[r[3]].append((r[1], r[2]))
+    out = []
+    for i, r in enumerate(records):
+        if r is None:
+            out.append(None)
+            continue
+        covered, end = 0, r[1]
+        for s, e in sorted(children.get(i, ())):
+            s, e = max(s, end), min(e, r[2])
+            if e > s:
+                covered += e - s
+                end = e
+        out.append(r[2] - r[1] - covered)
+    return out
+
+
+def count(name, n=1):
+    """Add ``n`` to counter ``name`` (under the launch counters' lock:
+    several threads step at once). Always on; apart from
+    :func:`~bmfr_tpu_torch.ops._lib.tally_launches`."""
+    with _lib._COUNT_LOCK:
+        _COUNTS[name] += n
+
+
+def counters():
+    """The named counters' values, a dict."""
+    with _lib._COUNT_LOCK:
+        return dict(_COUNTS)
 
 
 class CPUTimer:

@@ -649,6 +649,50 @@ def test_replays_advance_the_launch_counters(cuda, path, counters):
             k: expected[k] for k in counters}
 
 
+@pytest.mark.parametrize("path,carry", [("flagship", "packed"),
+                                        ("default", "temporal")])
+def test_compiled_step_spans_and_copies(cuda, path, carry):
+    """Over 20 replayed frames the ``copies`` counter advances 8 a frame
+    (the load's six input copies and frame fill, the result's copy), and
+    each frame records ``entry.step`` around ``step.run`` (around
+    ``step.load`` and ``step.replay``) and ``entry.clone`` once."""
+    from bmfr_tpu_torch import profiling
+
+    H, W, T = 48, 64, 22
+    cfg = path_cfg(path, H, W)
+    inputs, cams, offs = scene(H, W, cuda, frames=T)
+    initial = (bt.PackedState if carry == "packed"
+               else bt.TemporalState).initial
+    step = bt.make_denoise_frame(cfg)
+    state = initial(cfg, cuda)
+
+    def frame(t):
+        return (bt.FrameInputs(*(x[t] for x in inputs)), cams[max(t - 1, 0)],
+                offs[t], t)
+
+    for t in range(2):      # frame 0 eagerly, frame 1 captures
+        state, _ = step(state, *frame(t))
+    before = profiling.counters()["copies"]
+    with profiling.recording() as rec:
+        for t in range(2, T):
+            state, _ = step(state, *frame(t))
+    torch.cuda.synchronize()
+    assert profiling.counters()["copies"] - before == 8 * (T - 2)
+    assert rec.dropped == 0 and None not in rec.records
+    assert sorted({r[4] for r in rec.records}) == list(range(2, T))
+    for t in range(2, T):
+        mine = {r[0]: (i, r[3]) for i, r in enumerate(rec.records)
+                if r[4] == t}
+        assert len(mine) == sum(r[4] == t for r in rec.records) == 5
+        parent = {name: p for name, (_, p) in mine.items()}
+        index = {name: i for name, (i, _) in mine.items()}
+        assert parent == {"entry.step": None,
+                          "step.run": index["entry.step"],
+                          "entry.clone": index["entry.step"],
+                          "step.load": index["step.run"],
+                          "step.replay": index["step.run"]}
+
+
 def test_compiled_step_takes_a_tensor_frame(cuda):
     H, W, T = 64, 96, 4
     cfg = path_cfg("default", H, W)
