@@ -72,6 +72,7 @@
 
 #include <cuda.h>  // CUtensorMap and its encoder's types; no -lcuda
 
+#include <cstring>
 #include <mutex>
 #include <type_traits>
 
@@ -801,4 +802,36 @@ extern "C" int bmfr_filtered_tail(const float* filtered, const float* planes,
   }
   return residual_bf16 ? launch_ring<ThreadLoads, __nv_bfloat16>(a, m, stream)
                        : launch_ring<ThreadLoads, float>(a, m, stream);
+}
+
+// A TMA launch's tensor maps again, for a captured launch whose Params
+// the compiled step pointed at other tensors (csrc/graph_bind.cu): each
+// map whose tensor's address differs between old_params and new_params
+// is encoded for the new address, the others kept. 0, an encoder's code,
+// or cudaErrorInvalidValue where the sizes are not Params' and Maps'.
+extern "C" int bmfr_filtered_tail_remap(const void* old_params,
+                                        const void* new_params,
+                                        size_t params_size, void* maps,
+                                        size_t maps_size) {
+  if (params_size != sizeof(Params) || maps_size != sizeof(Maps))
+    return (int)cudaErrorInvalidValue;
+  Params o, a;
+  Maps m;
+  std::memcpy(&o, old_params, sizeof o);
+  std::memcpy(&a, new_params, sizeof a);
+  std::memcpy(&m, maps, sizeof m);
+  int e = 0;
+  if (a.filtered != o.filtered)
+    e = encode(&m.filtered, a.filtered, 3, a.H, a.W, BW, BH, 3);
+  if (!e && a.planes != o.planes &&
+      !(e = encode(&m.blend_tw, a.planes, 13, a.H, a.W, BW, BH, 1)) &&
+      !(e = encode(&m.blend_hist, a.planes, 13, a.H, a.W, BW, BH, 3)))
+    e = encode(&m.blend_k5, a.planes, 13, a.H, a.W, TX, TY, 4);
+  if (!e && a.albedo != o.albedo)
+    e = encode(&m.albedo, a.albedo, 3, a.H, a.W, BW, BH, 3);
+  if (!e && a.prev_pixels != o.prev_pixels)
+    e = encode(&m.prev_pixels, a.prev_pixels, 2, a.H, a.W, TX, TY, 2);
+  if (e != 0) return e;
+  std::memcpy(maps, &m, sizeof m);
+  return 0;
 }

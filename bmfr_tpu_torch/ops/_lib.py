@@ -29,7 +29,7 @@ SOURCES = ("warp_blend.cu", "fitter_chol.cu", "fitter_chol_basis.cu",
            "householder_direct.cu", "householder_direct_basis.cu",
            "warp_rows.cu", "reproject.cu", "noisy_tail.cu",
            "filtered_tail.cu", "warp_taps.cu", "feature_blocks.cu",
-           "block_reconstruct.cu")
+           "block_reconstruct.cu", "graph_bind.cu")
 HEADERS = ("fitter_front.cuh", "householder.cuh", "basis_front.cuh",
            "torch_ops.cuh", "feature_table.cuh", "tap_blend.cuh")
 #: the device kernels the sources define (``__global__`` names), as a
@@ -96,6 +96,16 @@ _SIGNATURES = {
     # smem, stream
     "bmfr_block_reconstruct": (_P, _P, _I, _I) + (_P,) * 4 + (_I,) * 9 + (
         _P,),
+    # the compiled step's inputs in place (pipeline/bind.py): graph, n,
+    # placeholders' starts and sizes (host arrays), the binder (out)
+    "bmfr_bind_scan": (_P, _I, _P, _P, _P),
+    # binder
+    "bmfr_bind_nodes": (_P,),
+    # binder, node, name buffer, its size, mask (out)
+    "bmfr_bind_node": (_P, _I, ctypes.c_char_p, _I, _P),
+    # binder, the graph's instance, bases (a host array)
+    "bmfr_bind_apply": (_P, _P, _P),
+    "bmfr_bind_free": (_P,),
 }
 
 #: an entry point's return codes below 0: a TMA tensor map could not be

@@ -8,11 +8,14 @@ runner. Eagerly, a frame is a few hundred launches from Python and the
 card waits for the host between them; a replay is one launch of all of
 them.
 
-- What a replay reads: static buffers that each call fills on the card
-  before the replay (the four ``[3, H, W]`` planes, the ``[4, 4]`` camera,
-  the ``[2]`` offset, and the frame number as a 0-d int32, which the
-  fitter kernels and the jitter read there: :mod:`~bmfr_tpu_torch.ops.
-  frame`), and the carry.
+- What a replay reads: the caller's four ``[3, H, W]`` planes, ``[4,
+  4]`` camera and ``[2]`` offset where they lie (:mod:`~bmfr_tpu_torch.
+  pipeline.bind`: the captured kernels' arguments pointed at them before
+  the replay, by one C call a slot; an input that cannot be read in place
+  is copied into the slot's static buffer, its placeholder, as every
+  input is at the capture), the frame number as a 0-d int32 in a static
+  buffer that each call fills (the fitter kernels and the jitter read it
+  there: :mod:`~bmfr_tpu_torch.ops.frame`), and the carry.
 - The carry: the step owns the state it carries, a buffer set of the
   state's type, written in place by the step's last kernels as XLA
   writes the JAX step's donated outputs: a :class:`~bmfr_tpu_torch.
@@ -26,8 +29,11 @@ them.
 - Capture: the first call of a (state type, card, number of scenes)
   runs its frame eagerly on the static buffers (which also loads the
   kernel library and makes every one-time setting), then captures the
-  same step on a stream of its own. A capture that fails raises: on a
-  card nothing falls back to the eager step.
+  same step on a stream of its own, keeps the graph beside its instance
+  and finds, once, the kernels' argument words that hold a placeholder's
+  address (:class:`~bmfr_tpu_torch.pipeline.bind.NodeBinding`). A
+  capture that fails raises: on a card nothing falls back to the eager
+  step.
 - Several scenes (:meth:`CompiledStep.run_scenes`, the scene-parallel
   runner of :mod:`~bmfr_tpu_torch.parallel`): one graph holds their
   steps back to back, each scene in a slot of its own (static buffers
@@ -43,7 +49,8 @@ them.
   ``step.run`` around a call, ``step.load`` around each slot's load and
   ``step.replay`` around the graph's launch and the counters' advance;
   ``copies`` counts the load's copies and fill (and a returned copy of
-  the carry).
+  the carry), ``inputs_in_place`` the inputs a replay reads where they
+  lie.
 
 The same kernels run in the same order with the same inputs, so a replay
 equals the eager step bit for bit.
@@ -69,8 +76,12 @@ from ..ops.warp import warp_rows
 from ..ops.warp_blend import warp_blend, warp_blend_planes
 from ..ops.weighted_sum import weighted_sum
 from ..profiling import count, span
+from .bind import NodeBinding, in_place, storage_start
 from .denoise import FrameInputs, PackedState, denoise_frame
 from .state import TemporalState
+
+#: a slot's inputs, in the order of its placeholders
+INPUTS = (*FrameInputs._fields, "prev_cam", "pixel_offset")
 
 #: the kernel wrappers whose launch counters a replay advances
 COUNTED = (warp_blend, fit_reconstruct_cholesky, fit_reconstruct_direct,
@@ -85,16 +96,19 @@ _CAPTURE_LOCK = threading.Lock()
 
 def capture(fn, device):
     """Capture ``fn()`` as a CUDA graph on ``device``, on a stream of its
-    own, and return ``(graph, fn's result)``; the result's tensors live
-    in the graph's memory and each ``graph.replay()`` rewrites them. Work
-    a graph cannot hold (a host read of the card, such as ``.item()``, or
-    a synchronization) raises; nothing runs eagerly instead."""
-    graph = torch.cuda.CUDAGraph()
+    own, and return ``(graph, fn's result)``: the graph instantiated, its
+    ``raw_cuda_graph()`` kept for :class:`~bmfr_tpu_torch.pipeline.bind.
+    NodeBinding`. The result's tensors live in the graph's memory and each
+    ``graph.replay()`` rewrites them. Work a graph cannot hold (a host
+    read of the card, such as ``.item()``, or a synchronization) raises;
+    nothing runs eagerly instead."""
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     stream = torch.cuda.Stream(device)
     stream.wait_stream(torch.cuda.current_stream(device))
     with _CAPTURE_LOCK, torch.cuda.graph(graph, stream=stream,
                                          capture_error_mode="thread_local"):
         out = fn()
+    graph.instantiate()
     torch.cuda.current_stream(device).wait_stream(stream)
     return graph, out
 
@@ -106,8 +120,9 @@ def _check(t, name, shape, dtype, device):
 
 
 class _Slot:
-    """One scene's place in a captured step: its static buffers and its
-    carry."""
+    """One scene's place in a captured step: its static buffers (the
+    inputs' placeholders and the frame), its carry and, after the
+    capture, the binding of its placeholders' nodes."""
 
     def __init__(self, cfg, state_type, device):
         H, W = cfg.image_height, cfg.image_width
@@ -117,6 +132,8 @@ class _Slot:
                                     for _ in FrameInputs._fields))
         self.cam = torch.zeros((4, 4), **f32)
         self.offset = torch.zeros(2, **f32)
+        self.placeholders = (*self.inputs, self.cam, self.offset)
+        self.homes = tuple(t.data_ptr() for t in self.placeholders)
         self.frame = torch.zeros((), dtype=torch.int32, device=device)
         self.carry = (PackedState if state_type is PackedState
                       else TemporalState).initial(cfg, device)
@@ -124,6 +141,8 @@ class _Slot:
             # distinct buffers: initial() shares one zero plane
             self.carry = TemporalState(*(t.clone() for t in self.carry))
         self.current = None     # the state whose values the carry holds
+        self.binding = None     # NodeBinding, once captured
+        self.written = frozenset()  # storages the step writes (in_place)
 
     def body(self):
         """The steady step on the static buffers, the carry written in
@@ -135,32 +154,60 @@ class _Slot:
         return dict(result=out["result"], tone=out["tone"],
                     warp_stats=out["warp_stats"])
 
+    def bind(self, binding, outputs):
+        """After the capture: read the inputs in place through ``binding``
+        (a :class:`~bmfr_tpu_torch.pipeline.bind.NodeBinding` of the
+        placeholders) where :func:`~bmfr_tpu_torch.pipeline.bind.in_place`
+        admits them; never an input in the carry or in the ``outputs``'
+        result or tone, which the step writes."""
+        self.binding = binding
+        self.written = frozenset(storage_start(t) for t in (
+            *self.carry, outputs["result"], outputs["tone"]))
+
     def _holds(self, state):
         return (self.current is not None
                 and all(a is b for a, b in zip(state, self.current)))
 
     def load(self, state, inputs, prev_cam, pixel_offset, frame):
-        """Fill the static buffers (and the carry, unless it already holds
-        ``state``) on the card; counts each copy and fill in ``copies``
+        """Check the inputs and make them what the next run reads: before
+        the capture each is copied into its placeholder; after it each
+        that :func:`~bmfr_tpu_torch.pipeline.bind.in_place` admits is
+        read where it lies and any other is copied, and one C call points
+        the nodes at the frame's addresses where they changed. Fills the
+        frame number, and copies ``state`` into the carry unless it holds
+        it already. Counts each copy and fill in ``copies`` and the inputs
+        read in place in ``inputs_in_place``
         (:func:`~bmfr_tpu_torch.profiling.count`)."""
         with span("step.load"):
-            cfg, dev = self.cfg, self.device
-            H, W = cfg.image_height, cfg.image_width
-            copies = len(FrameInputs._fields) + 3   # + camera, offset, frame
+            dev = self.device
+            copies = 1      # the frame
             if not self._holds(state):
                 for name, dst, src in zip(type(state)._fields, self.carry,
                                           state):
                     _check(src, name, tuple(dst.shape), dst.dtype, dev)
                     dst.copy_(src)
                 copies += len(self.carry)
-            for name, dst, src in zip(FrameInputs._fields, self.inputs,
-                                      inputs):
-                _check(src, name, (3, H, W), torch.float32, dev)
-                dst.copy_(src)
-            _check(prev_cam, "prev_cam", (4, 4), torch.float32, dev)
-            _check(pixel_offset, "pixel_offset", (2,), torch.float32, dev)
-            self.cam.copy_(prev_cam)
-            self.offset.copy_(pixel_offset)
+            srcs = (*inputs, prev_cam, pixel_offset)
+            for name, dst, src in zip(INPUTS, self.placeholders, srcs):
+                _check(src, name, tuple(dst.shape), torch.float32, dev)
+            if self.binding is None:
+                for dst, src in zip(self.placeholders, srcs):
+                    dst.copy_(src)
+                copies += len(srcs)
+            else:
+                bases, read = [], 0
+                for dst, src, home, need in zip(self.placeholders, srcs,
+                                                self.homes,
+                                                self.binding.alignment):
+                    if in_place(src, need, self.written):
+                        bases.append(src.data_ptr())
+                        read += 1
+                    else:
+                        dst.copy_(src)
+                        bases.append(home)
+                        copies += 1
+                self.binding.bind(tuple(bases))
+                count("inputs_in_place", read)
             if isinstance(frame, torch.Tensor):
                 _check(frame, "frame", (), torch.int32, dev)
                 self.frame.copy_(frame)
@@ -205,6 +252,8 @@ class _Graph:
             t0 = time.perf_counter()
             with _lib.tally_launches() as tally:
                 self.graph, self.outputs = capture(self.body, self.device)
+            for slot, out in zip(self.slots, self.outputs):
+                slot.bind(NodeBinding(self.graph, slot.placeholders), out)
             self.capture_s = time.perf_counter() - t0
             self.counts = [(fn, tally[fn]) for fn in COUNTED
                            if tally.get(fn)]
@@ -279,8 +328,9 @@ class CompiledStep:
 
     @property
     def capture_seconds(self):
-        """Seconds each capture took (capture and instantiation), by
-        (state type name, device, number of scenes)."""
+        """Seconds each capture took (capture, instantiation and the
+        bindings' walk of the graph), by (state type name, device, number
+        of scenes)."""
         return {(k[0].__name__, str(k[1]), k[2]): g.capture_s
                 for k, g in self._graphs.items()}
 

@@ -393,9 +393,10 @@ def trace_report(cfg, state, inputs, cam, off, reps, device):
 #: headline)
 SEQUENCE_TOLERANCE = 0.05
 #: the compiled step's own work, which the eager pass has not: the copies
-#: that fill its static input buffers each frame (``pipeline/graph.py``;
-#: kernels G and F write either carry in place), 0.038 ms a 1280x720
-#: frame, by name in a trace
+#: into its static input buffers of the inputs it cannot read in place
+#: (``pipeline/bind.py``; none for a sequence's contiguous frames, where
+#: a replay copies nothing; kernels G and F write either carry in place),
+#: by name in a trace
 STEP_COPY = "Memcpy DtoD (Device -> Device)"
 
 

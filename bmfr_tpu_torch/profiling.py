@@ -18,7 +18,8 @@ memory or a profiler records, where it is an operator-scope range on the
 trace's host timeline. :func:`count` and :func:`counters` are named
 counters, always on (``copies``: the device copies and fills the
 compiled step enqueues outside its kernels, and the entry's copy of the
-result).
+result; ``inputs_in_place``: the inputs a replay reads where the caller
+holds them).
 """
 
 from __future__ import annotations

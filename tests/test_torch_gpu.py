@@ -652,10 +652,11 @@ def test_replays_advance_the_launch_counters(cuda, path, counters):
 @pytest.mark.parametrize("path,carry", [("flagship", "packed"),
                                         ("default", "temporal")])
 def test_compiled_step_spans_and_copies(cuda, path, carry):
-    """Over 20 replayed frames the ``copies`` counter advances 8 a frame
-    (the load's six input copies and frame fill, the result's copy), and
-    each frame records ``entry.step`` around ``step.run`` (around
-    ``step.load`` and ``step.replay``) and ``entry.clone`` once."""
+    """Over 20 replayed frames the ``copies`` counter advances 2 a frame
+    (the load's frame fill, the result's copy) and ``inputs_in_place`` 6
+    (the frame's inputs, read where they lie), and each frame records
+    ``entry.step`` around ``step.run`` (around ``step.load`` and
+    ``step.replay``) and ``entry.clone`` once."""
     from bmfr_tpu_torch import profiling
 
     H, W, T = 48, 64, 22
@@ -673,11 +674,13 @@ def test_compiled_step_spans_and_copies(cuda, path, carry):
     for t in range(2):      # frame 0 eagerly, frame 1 captures
         state, _ = step(state, *frame(t))
     before = profiling.counters()["copies"]
+    read = profiling.counters()["inputs_in_place"]
     with profiling.recording() as rec:
         for t in range(2, T):
             state, _ = step(state, *frame(t))
     torch.cuda.synchronize()
-    assert profiling.counters()["copies"] - before == 8 * (T - 2)
+    assert profiling.counters()["copies"] - before == 2 * (T - 2)
+    assert profiling.counters()["inputs_in_place"] - read == 6 * (T - 2)
     assert rec.dropped == 0 and None not in rec.records
     assert sorted({r[4] for r in rec.records}) == list(range(2, T))
     for t in range(2, T):
@@ -1809,15 +1812,15 @@ def test_flagship_temporal_carry_launches_kernel_i(cuda, path):
     ("flagship", "temporal"), ("flagship", "packed"),
     ("householder_flagship", "temporal"), ("default", "temporal")])
 def test_compiled_step_copies_only_its_inputs(cuda, path, carry):
-    """A replay of the compiled step copies the frame's four planes, the
-    camera and the offset into its static buffers and nothing into the
-    carry, on either carry: kernels G and F write the next state in
-    place. Counted as device copies in a trace of four replays."""
+    """A replay of the compiled step copies nothing: it reads the frame's
+    four planes, the camera and the offset where they lie, and kernels G
+    and F write the next state into the carry in place, on either carry.
+    Counted as device copies in a trace of four replays (the frame's
+    fill is a kernel, not a copy)."""
     from torch.profiler import ProfilerActivity
 
     from bmfr_tpu_torch.ops import _lib
     from bmfr_tpu_torch.pipeline.graph import CompiledStep
-    from bmfr_tpu_torch.profile_stages import STEP_COPY
     from bmfr_tpu_torch.profiling import RUN_RANGE, device_events, traced_run
 
     H, W, T = 64, 96, 6
@@ -1846,8 +1849,103 @@ def test_compiled_step_copies_only_its_inputs(cuda, path, carry):
         replays()
     work = device_events(prof.events(), within=RUN_RANGE)
     copies = [e.name for e in work if "Memcpy" in e.name]
-    assert copies == [STEP_COPY] * (6 * (T - 2)), copies
+    assert copies == [], copies
     ours = sum(1 for e in work for k in _lib.KERNELS if k in e.name)
     kernels = {"default": 7, "flagship": 5, "householder_flagship": 5}[path]
     assert ours == kernels * (T - 2)
+    assert len(work) == (kernels + 1) * (T - 2)     # and the frame's fill
     assert isinstance(held[0], initial.__self__)
+
+
+def offset_by_a_float(t):
+    """A contiguous copy of ``t`` one float past a 512 B boundary: on 4
+    bytes, off 16."""
+    flat = torch.empty(t.numel() + 1, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize("path,carry,case", [
+    ("flagship", "packed", "in place"), ("flagship", "temporal", "in place"),
+    ("default", "temporal", "in place"),
+    ("householder_flagship", "temporal", "in place"),
+    ("flagship", "packed", "misaligned"), ("default", "temporal",
+                                           "two scenes")])
+def test_compiled_step_reads_inputs_in_place(cuda, path, carry, case):
+    """The compiled step over 20 frames of distinct inputs, its
+    placeholders filled with NaN right after the capture, so a node left
+    reading one would show: every frame's result and carry equal the
+    eager step's bit for bit, six inputs a frame read in place, and the
+    caller's tensors unchanged. ``misaligned``: the four planes one float
+    off 16 B, so F's TMA instance has albedo copied and the rest read in
+    place at 4 B; ``two scenes``: S = 2 in one graph, each slot bound to
+    its own scene."""
+    from bmfr_tpu_torch import profiling
+    from bmfr_tpu_torch.pipeline.graph import CompiledStep
+
+    H, W, T = 64, 96, 20
+    cfg = path_cfg(path, H, W)
+    inputs, cams, offs = scene(H, W, cuda, frames=T)
+    scenes = [inputs]
+    if case == "two scenes":
+        scenes.append(bt.FrameInputs(*(x.flip(-1).contiguous()
+                                       for x in inputs)))
+    initial = (bt.PackedState if carry == "packed"
+               else bt.TemporalState).initial
+
+    def frame_of(x, t):
+        planes = [p[t] for p in x]
+        if case == "misaligned":
+            planes = [offset_by_a_float(p) for p in planes]
+        return bt.FrameInputs(*planes)
+
+    frames = [[frame_of(x, t) for t in range(T)] for x in scenes]
+    kept = [[p.clone() for f in fs for p in f] for fs in frames]
+    # the eager step, each frame's result and state kept
+    want = []
+    for fs in frames:
+        state, got = initial(cfg, cuda), []
+        for t in range(T):
+            state, o = bt.denoise_frame(cfg, state, fs[t],
+                                        cams[max(t - 1, 0)], offs[t], t)
+            got.append((o["result"].clone(), [x.clone() for x in state]))
+        want.append(got)
+    step = CompiledStep(cfg)
+    states = []
+    for fs in frames:
+        st, _ = bt.denoise_frame(cfg, initial(cfg, cuda), fs[0], cams[0],
+                                 offs[0], 0)
+        states.append(st)
+
+    def run(t):
+        calls = [(st, fs[t], cams[t - 1], offs[t], t)
+                 for st, fs in zip(states, frames)]
+        return step.run_scenes(calls)
+
+    outs = run(1)                                  # the capture
+    (graph,) = step._graphs.values()
+    for slot in graph.slots:
+        for p in slot.placeholders:
+            p.fill_(float("nan"))
+    copies = profiling.counters()["copies"]
+    read = profiling.counters()["inputs_in_place"]
+    for t in range(1, T):
+        if t > 1:
+            outs = run(t)
+        for k, (st, o) in enumerate(outs):
+            states[k] = st
+            res, carried = want[k][t]
+            assert torch.equal(o["result"], res), (k, t)
+            for a, b in zip(st, carried):
+                assert torch.equal(a, b), (k, t)
+    S, replays = len(scenes), T - 2
+    in_place = 5 if case == "misaligned" else 6
+    assert profiling.counters()["inputs_in_place"] - read == (
+        S * in_place * replays)
+    assert profiling.counters()["copies"] - copies == (
+        S * (1 + 6 - in_place) * replays)
+    for fs, before in zip(frames, kept):
+        assert all(torch.equal(p, q) for p, q in
+                   zip((p for f in fs for p in f), before))

@@ -7,7 +7,9 @@ on the CPU:
 - inside a profiler a span is a host event of its name;
 - ``make_denoise_frame``'s step records ``entry.step`` around
   ``entry.eager``; ``_Slot.load`` records ``step.load`` and counts its
-  copies, with the carry's only when it loads another state;
+  copies (the six inputs before the capture, none after it, where they
+  count in ``inputs_in_place``), with the carry's only when it loads
+  another state;
 - the ``copies`` counter never enters ``tally_launches()``, and a
   replay's one ``count_launches`` call counts as ``count_launch`` did;
 - counters and spans stay exact with threads stepping at once.
@@ -28,6 +30,7 @@ from bmfr_tpu_torch.io.fixtures import synthetic_sequence
 from bmfr_tpu_torch.ops import _lib
 from bmfr_tpu_torch.pipeline.graph import _Slot
 
+from torch_binding import binding
 from torch_threads import one_intra_op_thread  # noqa: F401
 
 H, W = 48, 64
@@ -130,27 +133,40 @@ def test_make_denoise_frame_records_entry_step_around_eager():
 
 
 @pytest.mark.parametrize("carry, carried", [("packed", 1), ("temporal", 6)])
-def test_slot_load_counts_its_copies(carry, carried):
+def test_slot_load_counts_its_copies(carry, carried, monkeypatch):
+    """Before the capture a load copies the six inputs and fills the
+    frame; after it (the library's graph calls stood in for,
+    ``tests/torch_binding.py``) it fills the frame only and counts the six
+    inputs in ``inputs_in_place``; a state from elsewhere adds the carry's
+    copies, as does a returned copy of the carry."""
     cfg = cfg_of(**bt.FLAGSHIP)
     state_type = bt.PackedState if carry == "packed" else bt.TemporalState
     slot = _Slot(cfg, state_type, CPU)
     state = state_type.initial(cfg, CPU)
     cam, off = torch.eye(4), torch.zeros(2)
     before = profiling.counters().get("copies", 0)
+    read = profiling.counters().get("inputs_in_place", 0)
     with profiling.recording() as rec:
         slot.load(state, frame_inputs(1), cam, off, 1)
         first = profiling.counters()["copies"] - before
+        outputs = dict(result=torch.zeros(3, H, W),
+                       tone=torch.zeros(3, H, W))
+        slot.bind(binding(monkeypatch, slot.placeholders)[0], outputs)
         held = slot.hand_out(True)
-        slot.load(held, frame_inputs(2), cam, off, torch.tensor(
-            2, dtype=torch.int32))
+        slot.load(held, frame_inputs(2), cam, off,
+                  torch.tensor(2, dtype=torch.int32))
         second = profiling.counters()["copies"] - before - first
+        slot.load(state, frame_inputs(3), cam, off, 3)
+        third = profiling.counters()["copies"] - before - first - second
     assert first == 7 + carried
-    assert second == 7
-    assert [r[0] for r in rec.records] == ["step.load"] * 2
-    assert torch.equal(slot.frame, torch.tensor(2, dtype=torch.int32))
-    assert torch.equal(slot.inputs.noisy, frame_inputs(2).noisy)
+    assert second == 1
+    assert third == 1 + carried
+    assert profiling.counters()["inputs_in_place"] - read == 12
+    assert [r[0] for r in rec.records] == ["step.load"] * 3
+    assert torch.equal(slot.frame, torch.tensor(3, dtype=torch.int32))
+    assert torch.equal(slot.inputs.noisy, frame_inputs(1).noisy)
     slot.hand_out(False)
-    assert profiling.counters()["copies"] - before == 14 + carried + carried
+    assert profiling.counters()["copies"] - before == (9 + carried * 3)
 
 
 def test_copies_never_enter_the_tally():
