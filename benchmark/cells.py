@@ -1,6 +1,7 @@
 """``BENCHMARK.json`` and the files it names, found by name:
 ``benchmark/configs/<config>.json``, ``benchmark/traffic/<mix>.json``
-and ``benchmark/metrics/<metric>.py``."""
+and ``benchmark/metrics/<metric>.py``; and the start state that a
+configuration's ``carry`` names."""
 
 from __future__ import annotations
 
@@ -35,6 +36,24 @@ def config(bench, name):
         if c["name"] == name:
             return _json(ROOT / c["file"])
     raise SystemExit(f"no configuration {name!r} in BENCHMARK.json")
+
+
+def start_state(bt, config, cfg, device):
+    """The all-zero carry that the configuration file names (``carry``:
+    ``"PackedState"`` or ``"TemporalState"``), built by the program's own
+    ``initial(cfg, device)``; ``bt`` the program's package. Raises where
+    the program's step does not take that carry for ``cfg``: it takes a
+    ``PackedState`` only under ``warp_mode="pallas"``."""
+    carry = config["carry"]
+    if carry not in ("PackedState", "TemporalState"):
+        raise SystemExit(f"the configuration states a {carry!r} carry; the "
+                         "program carries a PackedState or a TemporalState")
+    if carry == "PackedState" and cfg.warp_mode != "pallas":
+        raise SystemExit(f"the configuration states a PackedState carry "
+                         f"under warp_mode={cfg.warp_mode!r}; the program's "
+                         "step takes a PackedState only under "
+                         "warp_mode='pallas'")
+    return getattr(bt, carry).initial(cfg, device)
 
 
 def traffic(name):

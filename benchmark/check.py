@@ -30,10 +30,17 @@ from .reference import bmfr
 
 
 def carried(config, state):
-    """The program's carried state as float32 ``{field: tensor}``: a
-    ``PackedState``'s words (two bf16 a word, channel 2k low and 2k+1 high;
-    positions 0:3, normals 3:6, noisy 6:9, spp 9, out 10:13, result 13:16)
-    or a ``TemporalState``'s six tensors."""
+    """The program's carried state as float32 ``{field: tensor}``, as the
+    next frame reads it: a ``PackedState``'s words (two bf16 a word,
+    channel 2k low and 2k+1 high; positions 0:3, normals 3:6, noisy 6:9,
+    spp 9, out 10:13, result 13:16) or a ``TemporalState``'s six tensors.
+    A ``TemporalState`` stores float32 planes; where the configuration
+    states ``state_dtype: "bfloat16"`` the next frame reads them through
+    bf16 taps (kernel I in ``packed_bf16`` rounds each tap to bf16,
+    nearest-even), and the reference stores them so rounded, so they are
+    rounded here too. ``spp`` (u8, whole numbers to 255, which bf16 holds
+    exactly) is left as it is, and so is a ``TemporalState`` at
+    ``state_dtype: "float32"``."""
     if config["carry"] == "PackedState":
         words = state.src8
         P, H, W = words.shape
@@ -41,7 +48,11 @@ def carried(config, state):
         ch = halves.permute(0, 3, 1, 2).reshape(2 * P, H, W).float()
         return {"positions": ch[0:3], "normals": ch[3:6], "noisy": ch[6:9],
                 "spp": ch[9], "out": ch[10:13], "result": ch[13:16]}
-    return {k: getattr(state, k).float() for k in bmfr.STATE_FIELDS}
+    planes = {k: getattr(state, k).float() for k in bmfr.STATE_FIELDS}
+    if config["state_dtype"] == "bfloat16":
+        planes = {k: v if k == "spp" else v.to(torch.bfloat16).float()
+                  for k, v in planes.items()}
+    return planes
 
 
 def rel_rms(got, want):

@@ -4,10 +4,11 @@ traced stretch (``--trace 1``), the check, and the result's line.
 The timed path is the program's public per-frame step,
 ``bmfr_tpu_torch.make_denoise_frame(cfg)``, the counterpart of the JAX
 package's jitted step and what a renderer calls once a frame. Set-up
-renders the cell's clip onto the card, runs frame 0 eagerly from
-``zero_state(cfg)``, lets frame 1 capture the compiled step
-(``pipeline/graph.py``) and warms up; then every frame replays it, the
-donated carry handed back in, the frame's inputs already on the card.
+renders the cell's clip onto the card, runs frame 0 eagerly from the
+all-zero carry that the configuration names (:func:`.cells.start_state`),
+lets frame 1 capture the compiled step (``pipeline/graph.py``) and warms
+up; then every frame replays it, the donated carry handed back in, the
+frame's inputs already on the card.
 """
 
 from __future__ import annotations
@@ -108,10 +109,7 @@ def run_cell(workload, seed, seconds, trace_on, *, device, t_start,
     step = bt.make_denoise_frame(cfg)
     if fault is not None:
         step = _fault_step(step, fault)
-    state = bt.zero_state(cfg, device)
-    if type(state).__name__ != config["carry"]:
-        raise SystemExit(f"the configuration states a {config['carry']} "
-                         f"carry, zero_state gives {type(state).__name__}")
+    state = cells.start_state(bt, config, cfg, device)
     k = traffic["in_flight"]
     fences = window.events(device, k)
     kept = collections.deque(maxlen=traffic["check"]["ring"])

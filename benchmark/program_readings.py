@@ -12,9 +12,10 @@ stretches of the renderer's loop (``benchmark/window.py``):
 1. ``--frames`` frames, the step call's host span taken as ``--trace 1``
    takes ``host_us_per_frame.interactive``, the program's spans off;
 2. as many again inside ``profiling.recording()``: the program's spans
-   and the ``copies`` counter's change; the ``[program]`` line gives each
-   span's mean and self us a frame, the copies a frame and the spans'
-   cost when on (stretch 2's host span less stretch 1's);
+   and the ``copies`` and ``inputs_in_place`` counters' changes; the
+   ``[program]`` line gives each span's mean and self us a frame, the
+   copies and the inputs read in place a frame and the spans' cost when
+   on (stretch 2's host span less stretch 1's);
 3. ``--trace-frames`` frames traced as ``benchmark/trace.py`` traces them
    (the same warm-up inside the trace, the launches held to the trace's
    port kernels), keeping the program's spans' host events: the
@@ -145,8 +146,9 @@ def read_cell(workload, seed, frames, trace_frames, device):
     step = bt.make_denoise_frame(cfg)
     k = traffic["in_flight"]
     fences = window.events(device, k)
-    state, t = window.drive(step, bt.zero_state(cfg, device), clip, 0, k,
-                            fences, frames=1 + traffic["warm_frames"],
+    start = cells.start_state(bt, config, cfg, device)
+    state, t = window.drive(step, start, clip, 0, k, fences,
+                            frames=1 + traffic["warm_frames"],
                             run=window.Run())
     torch.cuda.synchronize(device)
     gc.collect()
@@ -155,18 +157,20 @@ def read_cell(workload, seed, frames, trace_frames, device):
     state, t = window.drive(step, state, clip, t, k, fences, frames=frames,
                             run=off, spans=True)
     on = window.Run()
-    before = profiling.counters().get("copies", 0)
+    before = profiling.counters()
     with profiling.recording() as rec:
         state, t = window.drive(step, state, clip, t, k, fences,
                                 frames=frames, run=on, spans=True)
-    copies = profiling.counters().get("copies", 0) - before
+    copies, in_place = (profiling.counters().get(n, 0) - before.get(n, 0)
+                        for n in ("copies", "inputs_in_place"))
     host_off = statistics.fmean(off.host_spans) * 1e6
     host_on = statistics.fmean(on.host_spans) * 1e6
     table = program.span_table(rec.records)
     line = "; ".join(f"{n} {c / on.frames:g}/frame mean {m:.2f} us self "
                      f"{s:.2f} us" for n, (c, m, s) in sorted(table.items()))
     print(f"[program] {workload}: {on.frames} frames: {line}; copies "
-          f"{copies / on.frames:g} a frame; host span {host_on:.2f} us with "
+          f"{copies / on.frames:g}, inputs in place "
+          f"{in_place / on.frames:g} a frame; host span {host_on:.2f} us with "
           f"spans on, {host_off:.2f} us off: on-cost "
           f"{host_on - host_off:.2f} us a frame; dropped {rec.dropped}",
           file=sys.stderr)
@@ -221,6 +225,7 @@ def read_cell(workload, seed, frames, trace_frames, device):
         "host_us_off": host_off, "host_us_on": host_on,
         "on_cost_us": host_on - host_off,
         "copies_per_frame": copies / on.frames,
+        "inputs_in_place_per_frame": in_place / on.frames,
         "clock_lead_us": None if lead is None else lead[0],
         "clock_lead_median_us": (None if lead is None
                                  else statistics.median(lead[1])),

@@ -4,8 +4,8 @@ program (the cell's timed path over ``--frames`` frames after its
 warm-up, and as many more, below the clip's length, as the seed draws:
 a timed window ends anywhere in the clip, and the gaps depend on where)
 and for the control, the reference computed in TF32 in the
-program's place (the step below the float32 with TF32 off that both
-configurations state).
+program's place (the step below the float32 with TF32 off that every
+configuration states).
 
     python3 benchmark/readings.py --workload flagship.orbit.pipelined \\
         --seeds 1 2 3 --frames 3000
@@ -66,7 +66,8 @@ def main(argv=None):
         step = bt.make_denoise_frame(cfg)
         kept = collections.deque(maxlen=chk["ring"])
         run = window.Run()
-        state, t = window.drive(step, bt.zero_state(cfg, device), clip, 0, k,
+        start = cells.start_state(bt, config, cfg, device)
+        state, t = window.drive(step, start, clip, 0, k,
                                 window.events(device, k),
                                 frames=1 + traffic["warm_frames"]
                                 + args.frames

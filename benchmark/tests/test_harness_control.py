@@ -1,5 +1,5 @@
 """The control: the plain reference computed one step below the float32
-both configurations state (every product's operands rounded to TF32) in
+every configuration states (every product's operands rounded to TF32) in
 the program's place. It must come out not correct under each
 configuration's limits. On the card, at the cells' size, its readings
 come from ``benchmark/readings.py``; here it runs at 160x96 on the CPU."""
@@ -21,7 +21,8 @@ CPU = torch.device("cpu")
 
 
 @pytest.mark.parametrize("name", ["flagship_cholesky_720p",
-                                  "reference_exact_720p"])
+                                  "reference_exact_720p",
+                                  "householder_flagship_720p_temporal"])
 def test_the_tf32_control_is_not_correct(name):
     bench = cells.load_benchmark()
     config = cells.config(bench, name)

@@ -20,7 +20,8 @@ from benchmark.reference.oracle_reference_vec import (  # noqa: E402
 
 W, H, T = 48, 32, 4
 CPU = torch.device("cpu")
-CONFIGS = ("flagship_cholesky_720p", "reference_exact_720p")
+CONFIGS = ("flagship_cholesky_720p", "reference_exact_720p",
+           "householder_flagship_720p_temporal")
 
 
 def settings(name, **kw):

@@ -1,5 +1,5 @@
 """A rehearsal of the benchmark on the CPU: ``BENCHMARK.json`` against
-the contract's rules, each cell's run end to end at 64x48 through the
+the contract's rules, each cell's run end to end at 128x96 through the
 port's eager step (the check, the result's line, no device metric), the
 timed path broken underneath (``correct`` false), and the command
 without a card (non-zero, no result)."""
@@ -26,7 +26,9 @@ BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 PATH = re.compile(r"^[A-Za-z0-9_./-]{1,200}$")
-SMALL = {"width": 64, "height": 48, "frames": 24, "warm_frames": 6,
+#: 128x96: at 64x48 a bf16 state's one flipped rounding in ~9000 values
+#: moves a relative RMS by ~4e-5, the size of the limits set at 1280x720
+SMALL = {"width": 128, "height": 96, "frames": 24, "warm_frames": 6,
          "trace": {"host_span_frames": 5}}
 CELLS = [w["name"] for w in BENCH["workloads"]]
 
@@ -161,7 +163,8 @@ def test_cpu_rehearsal_of_a_run(cell, trace_on):
 
 @pytest.mark.parametrize("fault", ["state_unchanged", "answer_altered"])
 @pytest.mark.parametrize("cell", ["flagship.orbit.pipelined",
-                                  "reference_exact.orbit.interactive"])
+                                  "reference_exact.orbit.interactive",
+                                  "householder_temporal.orbit.pipelined"])
 def test_a_broken_timed_path_is_not_correct(cell, fault):
     rec = run_cell(cell, 31337, 0.3, False, device=torch.device("cpu"),
                    t_start=time.perf_counter(), overrides=SMALL, fault=fault)

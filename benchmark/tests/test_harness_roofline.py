@@ -17,6 +17,7 @@ S = Settings(1280, 720)
 
 @pytest.mark.parametrize("kernel, carry, mb, ms", [
     ("B", "PackedState", 44.4, 0.0132),
+    ("C", "TemporalState", 44.4, 0.0132),
     ("D", "TemporalState", 52.6, 0.0157),
     ("F", "PackedState", 104.1, 0.0311),
     ("F", "TemporalState", 93.1, 0.0278),
