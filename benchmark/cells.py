@@ -1,7 +1,8 @@
 """``BENCHMARK.json`` and the files it names, found by name:
 ``benchmark/configs/<config>.json``, ``benchmark/traffic/<mix>.json``
-and ``benchmark/metrics/<metric>.py``; and the start state that a
-configuration's ``carry`` names."""
+and ``benchmark/metrics/<metric>.py``; the start state that a
+configuration's ``carry`` names; and the program's entry that it names
+(``entry``, with ``scenes``)."""
 
 from __future__ import annotations
 
@@ -54,6 +55,25 @@ def start_state(bt, config, cfg, device):
                          "step takes a PackedState only under "
                          "warp_mode='pallas'")
     return getattr(bt, carry).initial(cfg, device)
+
+
+#: the program's entries a configuration may name, the first the default
+ENTRIES = ("make_denoise_frame", "denoise_scenes_jit")
+
+
+def entry(config):
+    """``(entry, scenes)``: the program's entry that the configuration
+    names (``entry``; without it the per-frame step,
+    ``make_denoise_frame``) and the scenes S it hands the card each call
+    (``scenes``, default 1; the per-frame step takes one)."""
+    name = config.get("entry", ENTRIES[0])
+    if name not in ENTRIES:
+        raise SystemExit(f"the configuration names the entry {name!r}; the "
+                         f"harness drives {ENTRIES}")
+    S = config.get("scenes", 1)
+    if name == "make_denoise_frame" and S != 1:
+        raise SystemExit(f"make_denoise_frame steps one scene, not {S}")
+    return name, S
 
 
 def traffic(name):

@@ -18,14 +18,25 @@ carried ``out`` (K4's accumulation, the second half of the state the
 next frame reads), both downstream of every stage: the reprojection and
 the warp of the carried state, K1 and its accept tests, the fit, the
 reconstruction, K4 and K5.
+
+A configuration whose entry is the scene runner (``denoise_scenes_jit``)
+is checked on the results of the window's last completed call
+(:func:`compare_clips`): for each scene, ``sampled`` frames drawn from
+``(seed, scene)`` with its frame 0 and its last frame, against the
+reference's replay of that scene's clip from the zero state at frame 0,
+as the runner starts every call. Compared: ``result_rel_rms``, the
+largest over the scenes. There is no ``out_rel_rms``: the runner hands
+back the results only, no carried state.
 """
 
 from __future__ import annotations
 
+import math
 import random
 
 import torch
 
+from . import scenes
 from .reference import bmfr
 
 
@@ -86,18 +97,33 @@ def pick(seed, frames, sampled):
                                              min(sampled, len(frames))))
 
 
+def worst(values):
+    """The largest of ``values``, NaN where one is NaN (``max`` keeps
+    whichever comes first where a NaN is compared)."""
+    values = list(values)
+    return math.nan if any(math.isnan(v) for v in values) else max(values)
+
+
+def result_numbers(results, ref_results):
+    """The results' numbers of :func:`numbers`: the largest relative RMS
+    gap and widest gap of a frame, and the most values 1e-4 off in one."""
+    diffs = [(results[t].double() - ref_results[t].double()).abs()
+             for t in ref_results]
+    return {
+        "result_rel_rms": worst(rel_rms(results[t], ref_results[t])
+                                for t in ref_results),
+        "result_gap": worst(float(d.max()) for d in diffs),
+        "result_values_off": max(int((d > 1e-4).sum()) for d in diffs),
+    }
+
+
 def numbers(results, carry, ref_results, ref_state):
     """Every number the comparison can read, by name: the compared ones
     and what the limits' readings look at beside them (the widest gaps,
     how many values lie more than 1e-4 off, the other state planes)."""
-    diffs = [(results[t].double() - ref_results[t].double()).abs()
-             for t in ref_results]
     out = (carry["out"].double() - ref_state["out"].double()).abs()
     return {
-        "result_rel_rms": max(rel_rms(results[t], ref_results[t])
-                              for t in ref_results),
-        "result_gap": max(float(d.max()) for d in diffs),
-        "result_values_off": max(int((d > 1e-4).sum()) for d in diffs),
+        **result_numbers(results, ref_results),
         "out_rel_rms": rel_rms(carry["out"], ref_state["out"]),
         "out_gap": float(out.max()),
         "out_values_off": int((out > 1e-4).sum()),
@@ -118,6 +144,50 @@ def compare(s, clip, kept, carry, last_t, seed, check):
     ref_state, ref_results = replay(s, clip, t_from, last_t, set(picks))
     got = numbers({t: kept[t] for t in picks}, carry, ref_results,
                   ref_state)
+    return got, {k: (got[k], lim) for k, lim in check["limits"].items()}
+
+
+def clip_picks(seed, scene, T, sampled):
+    """Scene ``scene``'s compared frames: ``sampled`` of its ``T`` drawn
+    from ``(seed, scene)``, with frame 0 and frame ``T - 1``."""
+    drawn = pick(scenes.scene_seed(seed, scene), range(T), sampled)
+    return sorted(set(drawn) | {0, T - 1})
+
+
+def clip_numbers(s, batch, results, seed, sampled, control=None):
+    """``(numbers, control's numbers)`` of a scene runner's call: each of
+    :func:`result_numbers`, the largest over the scenes, and
+    ``scene_result_rel_rms``, each scene's. ``batch``: the
+    :class:`~benchmark.window.Scenes` handed to the runner; ``results``:
+    ``[S, T, 3, H, W]``. ``control``: a precision (``"tf32"``) in which
+    the reference also takes the program's place, read against the same
+    reference; without it the second item is None."""
+    mine, ctl = [], []
+    for sc in range(batch.S):
+        clip = batch.clip(sc)
+        picks = clip_picks(seed, sc, batch.T, sampled)
+        _, ref = replay(s, clip, 0, batch.T - 1, set(picks))
+        mine.append(result_numbers({t: results[sc, t] for t in picks}, ref))
+        if control is not None:
+            _, got = replay(s, clip, 0, batch.T - 1, set(picks), control)
+            ctl.append(result_numbers(got, ref))
+            del got
+        del ref
+
+    def merged(per_scene):
+        out = {k: worst(n[k] for n in per_scene) for k in per_scene[0]}
+        out["scene_result_rel_rms"] = [n["result_rel_rms"]
+                                       for n in per_scene]
+        return out
+    return merged(mine), (merged(ctl) if ctl else None)
+
+
+def compare_clips(s, batch, results, seed, check):
+    """``(all numbers, {name: (number, limit)} of those compared)`` of a
+    scene runner's call: ``results`` ``[S, T, 3, H, W]`` of the
+    :class:`~benchmark.window.Scenes` ``batch``; ``check``: the traffic's
+    ``check`` (``sampled``) with the configuration's ``limits``."""
+    got, _ = clip_numbers(s, batch, results, seed, check["sampled"])
     return got, {k: (got[k], lim) for k, lim in check["limits"].items()}
 
 

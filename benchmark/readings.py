@@ -10,6 +10,13 @@ configuration states).
     python3 benchmark/readings.py --workload flagship.orbit.pipelined \\
         --seeds 1 2 3 --frames 3000
 
+A cell whose configuration's entry is the scene runner is read in clip
+mode: for each seed its S clips rendered, ``warm_calls`` and ``--calls``
+more calls of one runner built once (with ``in_flight`` calls not yet
+completed, as in the window), and the last call's results compared as
+:func:`benchmark.check.compare_clips` compares them; the control is the
+reference in TF32 over the same clips, against the same reference.
+
 One JSON line per seed on standard output. Not part of a benchmark run.
 """
 
@@ -32,6 +39,8 @@ def main(argv=None):
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", type=int, nargs="+", required=True)
     p.add_argument("--frames", type=int, default=3000)
+    p.add_argument("--calls", type=int, default=2,
+                   help="clip mode: calls after the warm-up")
     p.add_argument("--control-seeds", type=int, default=None,
                    help="read the control on the first N seeds only")
     args = p.parse_args(argv)
@@ -55,6 +64,8 @@ def main(argv=None):
 
     cfg = bt.config.check_supported(bt.BMFRConfig(**config["bmfr"]))
     s = settings_from_config(config)
+    if cells.entry(config)[0] == "denoise_scenes_jit":
+        return _clips(args, bt, cfg, s, traffic, device)
     chk = traffic["check"]
     k = traffic["in_flight"]
     for seed in args.seeds:
@@ -103,6 +114,54 @@ def main(argv=None):
             del ctl_state, ctl_results
         print(json.dumps(line), flush=True)
         del planes, cams, offs, clip, results, carry, ref_state, ref_results
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0
+
+
+def _clips(args, bt, cfg, s, traffic, device):
+    """The readings of a scene runner's cell, one line per seed."""
+    import torch
+
+    from benchmark import check, scenes, window
+    from bmfr_tpu_torch.pipeline.denoise import FrameInputs
+
+    k = traffic["in_flight"]
+    fences = window.events(device, k)
+    runner = bt.denoise_scenes_jit(cfg, [device])
+    for seed in args.seeds:
+        t0 = time.perf_counter()
+        batch = window.Scenes(FrameInputs,
+                              *scenes.render_scenes(traffic, seed, device))
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t0
+        kept = collections.deque(maxlen=1)
+        run = window.Run()
+        window.drive_calls(runner, batch, k, fences,
+                           calls=traffic["warm_calls"] + args.calls,
+                           keep=kept, run=run)
+        torch.cuda.synchronize()
+        results = kept[-1]
+        del kept
+        control = (None if args.control_seeds is not None
+                   and seed not in args.seeds[:args.control_seeds]
+                   else "tf32")
+        t1 = time.perf_counter()
+        mine, ctl = check.clip_numbers(s, batch, results, seed,
+                                       traffic["check"]["sampled"], control)
+        torch.cuda.synchronize()
+        line = {"workload": args.workload, "seed": seed,
+                "scene_frames": run.frames, "failed": run.failed,
+                "render_s": render_s,
+                "reference_s": time.perf_counter() - t1,
+                "picks": [check.clip_picks(seed, sc, batch.T,
+                                           traffic["check"]["sampled"])
+                          for sc in range(batch.S)],
+                "program": mine}
+        if ctl is not None:
+            line["control"] = ctl
+        print(json.dumps(line), flush=True)
+        del batch, results
         gc.collect()
         torch.cuda.empty_cache()
     return 0

@@ -7,14 +7,22 @@ so that a run renders its clip on the card in seconds. The geometry is
 computed in float64, as the fixtures compute it, and stored as float32.
 Two changes to the source make the clip loop without a cut, each read
 from the traffic file: the camera turns by ``2 pi / frames`` a frame
-(the source: 0.02 rad) and the eye stays at its frame-0 height (the
-source climbs 0.05 a frame). The noise is this module's own: each
-frame's gamma variates come from a ``torch.Generator`` seeded with the
-run's seed, by Marsaglia and Tsang's method.
+(the source: 0.02 rad), unless the traffic gives ``angular_step`` (rad
+a frame), and the eye stays at its frame-0 height (the source climbs
+0.05 a frame). The noise is this module's own: each frame's gamma
+variates come from a ``torch.Generator`` seeded with the run's seed, by
+Marsaglia and Tsang's method.
+
+A traffic of ``scenes`` S renders S views of the scene
+(:func:`render_scenes`): scene ``s`` starts at ``start_angle + s *
+scene_spacing`` and draws its noise from a generator of its own, seeded
+from ``(seed, s)`` (:func:`scene_seed`); scene 0 is what
+:func:`render_clip` renders.
 
 Returns channels-first float32 ``[T, 3, H, W]`` planes, the cameras
 ``[T, 4, 4]`` (stored so that their columns project,
-opencl/bmfr.cl:342-347) and the offsets ``[T, 2]``.
+opencl/bmfr.cl:342-347) and the offsets ``[T, 2]``; :func:`render_scenes`
+the same with a leading scene axis.
 """
 
 from __future__ import annotations
@@ -61,9 +69,19 @@ def perspective(fov_y, aspect, near, far, device):
     return m
 
 
-def camera(traffic, t, device):
-    """``(eye, view-projection)`` of clip frame ``t``, float64."""
-    ang = traffic["start_angle"] + 2 * math.pi * t / traffic["frames"]
+def angle(traffic, t, scene=0):
+    """The camera's angle (rad) at clip frame ``t`` of scene ``scene``."""
+    start = traffic["start_angle"] + scene * traffic.get("scene_spacing",
+                                                         0.0)
+    if "angular_step" in traffic:
+        return start + traffic["angular_step"] * t
+    return start + 2 * math.pi * t / traffic["frames"]
+
+
+def camera(traffic, t, device, scene=0):
+    """``(eye, view-projection)`` of clip frame ``t`` of scene ``scene``,
+    float64."""
+    ang = angle(traffic, t, scene)
     r = traffic["radius"]
     eye = torch.tensor([r * math.cos(ang), traffic["eye_height"],
                         r * math.sin(ang)], dtype=torch.float64,
@@ -159,23 +177,22 @@ def gamma_noise(shape, k, theta, generator, device):
     return out.reshape(shape)
 
 
-def render_clip(traffic, seed, device):
-    """The traffic's clip on ``device``: ``(planes, cams, offsets)``, with
-    ``planes`` a dict of float32 ``[T, 3, H, W]`` normals, positions,
-    noisy and albedo. The seed sets the noise only: every seed renders
-    the same geometry, cameras and offsets."""
+def scene_seed(seed, scene):
+    """The noise generator's seed of scene ``scene`` of a run: the run's
+    seed for scene 0, a seed of its own for each other scene."""
+    return (int(seed) + scene * 0x9E3779B97F4A7C15) % 2**63
+
+
+def _render_into(traffic, seed, scene, planes, cams, offs):
+    """Render scene ``scene``'s clip into ``planes`` (``[T, 3, H, W]``
+    each) and ``cams`` (``[T, 4, 4]``) at the offsets ``offs``."""
     T, W, H = traffic["frames"], traffic["width"], traffic["height"]
+    device = cams.device
     gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed) % 2**63)
+    gen.manual_seed(scene_seed(seed, scene))
     ns = traffic["noise_scale"]
-    planes = {k: torch.empty((T, 3, H, W), dtype=torch.float32,
-                             device=device)
-              for k in ("normals", "positions", "noisy", "albedo")}
-    cams = torch.empty((T, 4, 4), dtype=torch.float32, device=device)
-    offs = torch.tensor([[halton(t + 1, 2), halton(t + 1, 3)]
-                         for t in range(T)], dtype=torch.float32)
     for t in range(T):
-        eye, vp = camera(traffic, t, device)
+        eye, vp = camera(traffic, t, device, scene)
         cams[t] = vp.T.float()
         ox, oy = (float(v) for v in offs[t])
         g = gbuffer(vp, eye, W, H, ox, oy)
@@ -183,4 +200,42 @@ def render_clip(traffic, seed, device):
         for k in ("normals", "positions", "albedo"):
             planes[k][t] = g[k].permute(2, 0, 1).float()
         planes["noisy"][t] = (g["irr"] * noise).permute(2, 0, 1).float()
+
+
+def _offsets(T):
+    return torch.tensor([[halton(t + 1, 2), halton(t + 1, 3)]
+                         for t in range(T)], dtype=torch.float32)
+
+
+def render_clip(traffic, seed, device):
+    """The traffic's clip on ``device``: ``(planes, cams, offsets)``, with
+    ``planes`` a dict of float32 ``[T, 3, H, W]`` normals, positions,
+    noisy and albedo. The seed sets the noise only: every seed renders
+    the same geometry, cameras and offsets."""
+    T, W, H = traffic["frames"], traffic["width"], traffic["height"]
+    planes = {k: torch.empty((T, 3, H, W), dtype=torch.float32,
+                             device=device)
+              for k in ("normals", "positions", "noisy", "albedo")}
+    cams = torch.empty((T, 4, 4), dtype=torch.float32, device=device)
+    offs = _offsets(T)
+    _render_into(traffic, seed, 0, planes, cams, offs)
     return planes, cams, offs.to(device)
+
+
+def render_scenes(traffic, seed, device):
+    """The traffic's ``scenes`` clips on ``device``, stacked:
+    ``(planes, cams, offsets)`` with float32 ``[S, T, 3, H, W]`` planes,
+    ``[S, T, 4, 4]`` cameras and ``[S, T, 2]`` offsets. Scene ``s`` is
+    the view ``s * scene_spacing`` further round the orbit, with noise
+    of its own; every scene has the same pixel offsets."""
+    S = traffic["scenes"]
+    T, W, H = traffic["frames"], traffic["width"], traffic["height"]
+    planes = {k: torch.empty((S, T, 3, H, W), dtype=torch.float32,
+                             device=device)
+              for k in ("normals", "positions", "noisy", "albedo")}
+    cams = torch.empty((S, T, 4, 4), dtype=torch.float32, device=device)
+    offs = _offsets(T)
+    for s in range(S):
+        _render_into(traffic, seed, s, {k: v[s] for k, v in planes.items()},
+                     cams[s], offs)
+    return planes, cams, offs.to(device).expand(S, T, 2).contiguous()

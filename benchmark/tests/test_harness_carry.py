@@ -124,3 +124,51 @@ def test_a_packed_carry_is_read_as_before():
                   ("result", slice(13, 16))):
         assert torch.equal(got[k], want[sl]), k
     assert torch.equal(got["spp"], want[9])
+
+
+@pytest.mark.parametrize("name", BEFORE + (TEMPORAL,))
+def test_the_configurations_before_the_scene_runner_name_the_per_frame_step(
+        name):
+    config = cells.config(BENCH, name)
+    assert "entry" not in config and "scenes" not in config
+    assert cells.entry(config) == ("make_denoise_frame", 1)
+
+
+def test_the_scene_runners_configuration():
+    config = cells.config(BENCH, "flagship_cholesky_720p_x4")
+    assert cells.entry(config) == ("denoise_scenes_jit", 4)
+    flagship = cells.config(BENCH, "flagship_cholesky_720p")
+    assert config["bmfr"] == flagship["bmfr"]
+    assert config["carry"] == "PackedState" == flagship["carry"]
+    _, cfg = program_config("flagship_cholesky_720p_x4")
+    assert type(bt.zero_state(cfg, CPU)).__name__ == config["carry"]
+    with pytest.raises(SystemExit):
+        cells.entry(dict(config, entry="denoise_sequence"))
+    with pytest.raises(SystemExit):
+        cells.entry(dict(config, entry="make_denoise_frame"))
+
+
+@pytest.mark.parametrize("cell, entry", [
+    ("flagship.orbit.pipelined", "make_denoise_frame"),
+    ("householder_temporal.orbit.pipelined", "make_denoise_frame"),
+    ("flagship_x4.orbit.clips60", "denoise_scenes_jit")])
+def test_each_cell_runs_the_entry_its_configuration_names(monkeypatch, cell,
+                                                          entry):
+    """A cell whose configuration names no entry builds the per-frame step
+    and never the scene runner; the scene runner's cell the reverse."""
+    import time
+
+    from benchmark.harness import run_cell
+
+    built = []
+    for name in ("make_denoise_frame", "denoise_scenes_jit"):
+        def spy(*args, _name=name, _fn=getattr(bt, name), **kw):
+            built.append(_name)
+            return _fn(*args, **kw)
+        monkeypatch.setattr(bt, name, spy)
+    rec = run_cell(cell, 2**31 + 5, 0.1, False, device=CPU,
+                   t_start=time.perf_counter(),
+                   overrides={"width": 128, "height": 96, "frames": 4,
+                              "warm_frames": 2, "warm_calls": 1})
+    assert built == [entry]
+    assert rec["correct"] is True, rec["compared"]

@@ -40,3 +40,24 @@ def test_the_tf32_control_is_not_correct(name):
     limits = config["correct"]["limits"]
     compared = {k: (got[k], lim) for k, lim in limits.items()}
     assert not check.passed(compared), compared
+
+
+def test_the_tf32_control_of_a_scene_runners_call_is_not_correct():
+    """The scene runner's configuration, its 4 clips from the zero state:
+    the control over each scene's compared frames, frame 0 and the last
+    among them, against the reference."""
+    bench = cells.load_benchmark()
+    config = cells.config(bench, "flagship_cholesky_720p_x4")
+    config = dict(config, bmfr=dict(config["bmfr"], image_width=W,
+                                    image_height=H))
+    s = settings_from_config(config)
+    traffic = dict(cells.traffic("orbit4_clips60"), width=W, height=H,
+                   frames=8)
+    batch = window.Scenes(FrameInputs,
+                          *scenes.render_scenes(traffic, 7, CPU))
+    results = torch.zeros((batch.S, batch.T, 3, H, W))
+    _, got = check.clip_numbers(s, batch, results, 7,
+                                traffic["check"]["sampled"], "tf32")
+    limits = config["correct"]["limits"]
+    compared = {k: (got[k], lim) for k, lim in limits.items()}
+    assert not check.passed(compared), compared

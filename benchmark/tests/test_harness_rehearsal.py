@@ -27,9 +27,10 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 PATH = re.compile(r"^[A-Za-z0-9_./-]{1,200}$")
 #: 128x96: at 64x48 a bf16 state's one flipped rounding in ~9000 values
-#: moves a relative RMS by ~4e-5, the size of the limits set at 1280x720
+#: moves a relative RMS by ~4e-5, the size of the limits set at 1280x720;
+#: a scene runner's cell warms up with one call
 SMALL = {"width": 128, "height": 96, "frames": 24, "warm_frames": 6,
-         "trace": {"host_span_frames": 5}}
+         "warm_calls": 1, "trace": {"host_span_frames": 5}}
 CELLS = [w["name"] for w in BENCH["workloads"]]
 
 

@@ -86,3 +86,56 @@ def test_large_seed():
     gen.manual_seed((2**31 + 12345) % 2**63)
     assert math.isfinite(float(scenes.gamma_noise((10,), 8.0, 0.1, gen,
                                                   CPU).sum()))
+
+
+def _render_clip_before_scenes(traffic, seed, device):
+    """:func:`benchmark.scenes.render_clip` as it was before traffic could
+    name ``scenes``, ``scene_spacing`` and ``angular_step``: the camera
+    turns 2 pi / frames a frame, the noise drawn from the run's seed."""
+    T, W, H = traffic["frames"], traffic["width"], traffic["height"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed) % 2**63)
+    ns = traffic["noise_scale"]
+    planes = {k: torch.empty((T, 3, H, W), dtype=torch.float32,
+                             device=device)
+              for k in ("normals", "positions", "noisy", "albedo")}
+    cams = torch.empty((T, 4, 4), dtype=torch.float32, device=device)
+    offs = torch.tensor([[scenes.halton(t + 1, 2), scenes.halton(t + 1, 3)]
+                         for t in range(T)], dtype=torch.float32)
+    for t in range(T):
+        ang = traffic["start_angle"] + 2 * math.pi * t / traffic["frames"]
+        r = traffic["radius"]
+        eye = torch.tensor([r * math.cos(ang), traffic["eye_height"],
+                            r * math.sin(ang)], dtype=torch.float64)
+        center = torch.tensor(traffic["center"], dtype=torch.float64)
+        up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float64)
+        proj = scenes.perspective(math.radians(traffic["fov_y_deg"]), W / H,
+                                  traffic["near"], traffic["far"], device)
+        vp = proj @ scenes.look_at(eye, center, up)
+        cams[t] = vp.T.float()
+        ox, oy = (float(v) for v in offs[t])
+        g = scenes.gbuffer(vp, eye, W, H, ox, oy)
+        noise = scenes.gamma_noise((H, W, 3), 1.0 / ns ** 2, ns ** 2, gen,
+                                   device)
+        for k in ("normals", "positions", "albedo"):
+            planes[k][t] = g[k].permute(2, 0, 1).float()
+        planes["noisy"][t] = (g["irr"] * noise).permute(2, 0, 1).float()
+    return planes, cams, offs
+
+
+@pytest.mark.parametrize("mix", ["orbit_pipelined", "orbit_interactive"])
+def test_the_single_scene_traffic_renders_as_before(mix):
+    """The traffic files without ``scenes`` render bit for bit as before
+    the scene runner's cell, at 64x48 over the first 5 frames of their
+    315-frame loop (the angle keeps its 2 pi / 315 step)."""
+    traffic = cells.traffic(mix)
+    assert not {"scenes", "scene_spacing", "angular_step"} & set(traffic)
+    small = dict(traffic, width=W, height=H)
+    want = _render_clip_before_scenes(dict(small, frames=5), 2**31 + 77, CPU)
+    got = scenes.render_clip(dict(small, frames=5), 2**31 + 77, CPU)
+    for k in want[0]:
+        assert torch.equal(got[0][k], want[0][k]), k
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    for t in (0, 1, 157, 314):
+        assert scenes.angle(traffic, t) == (
+            traffic["start_angle"] + 2 * math.pi * t / traffic["frames"])

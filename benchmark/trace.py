@@ -12,7 +12,9 @@ that range (the compiled step's replays count their captured launches);
 one that lost or gained events is taken again, and after three such
 traces the run fails. The device events kept are those that started
 inside the range, give or take 25 ms (the device's and the host's clocks
-disagreed by up to 0.7 ms in a trace on the H100).
+disagreed by up to 0.7 ms in a trace on the H100). Each device event
+kept is put down to the CUDA graph replay that ran it, where one did: the
+``cudaGraphLaunch`` call whose correlation id it carries.
 """
 
 from __future__ import annotations
@@ -42,6 +44,9 @@ class Reading:
     device: list               # (name, start us, duration us) in the range
     host_spans_s: list         # the step call's host span, untraced frames
     gaps: list                 # (what the host was doing, idle us)
+    #: for each of ``device``, the correlation id of the graph launch that
+    #: ran it, or None where no graph replay ran it
+    replay_of: list = dataclasses.field(default_factory=list)
 
 
 def _union_us(spans):
@@ -67,24 +72,45 @@ def _host_activity(cpu, starts, t):
     return "(no host range)"
 
 
-def reduce_events(events, stages):
-    """``(device events in the range, range start, range end, host
-    events)`` of a profiler event list. ``stages``: the port's profiler
-    ranges, which mirror on the device's timeline and are no work."""
+def _range(events):
     cuda = torch.autograd.DeviceType.CUDA
     ranges = [e for e in events if e.name == RANGE
               and e.device_type != cuda]
     if not ranges:
         raise RuntimeError(f"the trace holds no host range {RANGE!r}")
-    lo = min(e.time_range.start for e in ranges)
-    hi = max(e.time_range.end for e in ranges)
+    return (min(e.time_range.start for e in ranges),
+            max(e.time_range.end for e in ranges))
+
+
+def _device_events(events, stages, lo, hi):
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in events
+            if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in stages
+            and not e.name.startswith("bench.")
+            and lo - SLACK_US <= e.time_range.start <= hi + SLACK_US]
+
+
+def replay_of(events, stages):
+    """For each device event that :func:`reduce_events` keeps, in its
+    order, the correlation id of the ``cudaGraphLaunch`` call that ran it
+    (a graph's kernels carry their launch's id), or None."""
+    cuda = torch.autograd.DeviceType.CUDA
+    launches = {e.id for e in events
+                if e.device_type != cuda and e.name == "cudaGraphLaunch"}
+    return [e.id if e.id in launches else None
+            for e in _device_events(events, stages, *_range(events))]
+
+
+def reduce_events(events, stages):
+    """``(device events in the range, range start, range end, host
+    events)`` of a profiler event list. ``stages``: the port's profiler
+    ranges, which mirror on the device's timeline and are no work."""
+    cuda = torch.autograd.DeviceType.CUDA
+    lo, hi = _range(events)
     device = [(e.name, e.time_range.start, e.time_range.elapsed_us())
-              for e in events
-              if e.device_type == cuda
-              and not getattr(e, "is_user_annotation", False)
-              and e.name not in stages
-              and not e.name.startswith("bench.")
-              and lo - SLACK_US <= e.time_range.start <= hi + SLACK_US]
+              for e in _device_events(events, stages, lo, hi)]
     cpu = sorted((e.name, e.time_range.start, e.time_range.end)
                  for e in events
                  if e.device_type != cuda and e.name != RANGE
@@ -111,13 +137,16 @@ def traced(stretch, warm, device, settings, config, host_spans, log):
                 frames = stretch()
         events = prof.events()
         dev, lo, hi, cpu = reduce_events(events, STAGES)
+        replays = replay_of(events, STAGES)
         del events, prof
         want = sum(tally.values())
         got = sum(1 for name, _, _ in dev
                   if any(k in name for k in _lib.KERNELS))
+        in_replays = [r for r in replays if r is not None]
         print(f"[trace {attempt}] {got} device events of the port's kernels "
               f"for {want} launches counted, {len(dev)} device events in "
-              f"{frames} frames", file=log)
+              f"{frames} frames; {len(in_replays)} of them in "
+              f"{len(set(in_replays))} graph replays", file=log)
         if got == want:
             break
     else:
@@ -137,7 +166,8 @@ def traced(stretch, warm, device, settings, config, host_spans, log):
         gaps[_host_activity(cpu, starts, (hi + end) / 2)] += hi - end
     return Reading(settings=settings, config=config, frames=frames,
                    window_us=hi - lo, busy_us=_union_us(spans), device=dev,
-                   host_spans_s=host_spans, gaps=gaps.most_common())
+                   host_spans_s=host_spans, gaps=gaps.most_common(),
+                   replay_of=replays)
 
 
 def breakdown(reading):
