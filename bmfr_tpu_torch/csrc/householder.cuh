@@ -18,10 +18,18 @@
 // head is known. Shared scratch is double-buffered by reflection parity,
 // so one barrier per reflection suffices and none follows the update.
 //
-// The column count NB is a template parameter, so every loop over
-// columns is static and the columns' registers are indexed statically;
-// the reflections themselves run as a loop, which keeps each instance
-// small (fully unrolled, the ~90 instances took over 15 minutes to build).
+// The column count NB is a template parameter, so every loop over columns
+// is static and the columns' registers are indexed statically. Two forms
+// of the chain: qr_registers (kernel D, the basis kernel C) runs the
+// reflections as a loop, which keeps each of their many instances small;
+// qr_unrolled (kernel C) unrolls them by column, so reflection col sums,
+// hands out and updates only its NB - col live columns where they lie.
+// Unrolled, kernel C took 0.0817 ms a call against the loop's 0.0931, and
+// kernel D 0.0756 against 0.0831; but D's code grew from 56 to 101 KB, and
+// after another kernel's code had filled the SMs' instruction caches, as
+// the frame's other kernels do, it took 0.0856 against the loop's 0.0834
+// (C: 0.0843 against 0.0934), and the basis kernel C at 16 columns took
+// 0.1839 against 0.1658 even alone (H100; PERF.md, Findings).
 
 #pragma once
 
@@ -100,13 +108,15 @@ __device__ __forceinline__ float reflect_value(float x, float k, float u) {
 // the group, left in every lane's v. A group of 16 (half a warp) takes a
 // butterfly, whose lanes all end with the same totals (the adds commute;
 // measured faster there than the transpose below). A larger group takes a
-// transpose reduction per warp (fitter_front.cuh, four steps: 8 + 4 + 2 +
-// 1 shuffles, not 5 N), so lanes 2c and 2c + 1 end with the warp's total
-// of value c after one more exchange; they write it to red
-// [warps][stride] (red_buf, this reflection's buffer), and after the one
-// barrier lane c sums value c over the group's warps, in warp order, and
-// hands it out by shuffles. sync: the caller's shared writes before the
-// barrier (the pivot row).
+// transpose reduction per warp over P values, P the power of two from N
+// up (fitter_front.cuh: log2 P steps at offsets 16, 8, .., P/2 + P/4 + ..
+// shuffles, not 5 N), then a butterfly over the offsets left down to 1:
+// whatever N, each value's warp total is summed over the offsets 16, 8, 4,
+// 2, 1 in that order, and lanes 32 c / P .. 32 (c + 1) / P - 1 end with
+// value c's. The first of them writes it to red [warps][stride] (red_buf,
+// this reflection's buffer), and after the one barrier lane c sums value
+// c over the group's warps, in warp order, and hands it out by shuffles.
+// sync: the caller's shared writes before the barrier (the pivot row).
 template <int N, bool HALF, class Sync>
 __device__ __forceinline__ void group_sum(float (&v)[N], const Group& g,
                                           float* red_buf, int stride,
@@ -121,13 +131,17 @@ __device__ __forceinline__ void group_sum(float (&v)[N], const Group& g,
     sync();
     return;
   }
-  float a[16];
+  constexpr int STEPS = N > 8 ? 4 : (N > 4 ? 3 : (N > 2 ? 2 : (N > 1)));
+  constexpr int P = 1 << STEPS, SPAN = 32 / P;  // SPAN lanes hold a total
+  float a[P];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) a[i] = i < N ? v[i] : 0.0f;
-  transpose_halves<SumOp, 16, 4>(a, g.lane);
-  a[0] += __shfl_xor_sync(FULL, a[0], 1);
-  const int idx = (g.lane >> 1) & 15;
-  if ((g.lane & 1) == 0 && idx < N) red_buf[g.wcta * stride + idx] = a[0];
+  for (int i = 0; i < P; ++i) a[i] = i < N ? v[i] : 0.0f;
+  transpose_halves<SumOp, P, STEPS>(a, g.lane);
+#pragma unroll
+  for (int o = SPAN / 2; o > 0; o >>= 1)
+    a[0] += __shfl_xor_sync(FULL, a[0], o);
+  const int idx = g.lane / SPAN;
+  if (g.lane % SPAN == 0 && idx < N) red_buf[g.wcta * stride + idx] = a[0];
   sync();
   __syncthreads();
   float t = 0.0f;
@@ -217,6 +231,66 @@ __device__ __forceinline__ void qr_registers(float (&x)[NB][4],
       for (int j = 0; j + 1 < NB; ++j) x[j][r] = x[j + 1][r];
       x[NB - 1][r] = 0.0f;
     }
+  }
+}
+
+// ---- the same QR unrolled by column, for a group of whole warps: a
+// thread holds rows 4 gt .. 4 gt + 3 of the block in x[column][row].
+// Reflection COL reads its pivot column x[COL] where it lies, and the
+// sums, the pivot row's hand-out and the updates cover the L = NB - COL
+// columns from COL on; then it runs reflection COL + 1. The pivot row's
+// owner (thread COL / 4) and its row slot (COL % 4) are compile-time
+// values. Each value goes through the same operations, in the same order,
+// as in qr_registers. Scratch as qr_registers'. ----
+template <int M, int NB, int COL = 0>
+__device__ __forceinline__ void qr_unrolled(float (&x)[NB][4], const Group& g,
+                                            float* red, float* rows,
+                                            float* rs, int warps,
+                                            int groups) {
+  constexpr int F = NB - 3, RS = 2 * NB;
+  if constexpr (COL < F) {
+    constexpr int L = NB - COL, owner = COL >> 2, slot = COL & 3;
+    constexpr int buf = COL & 1;
+    const int e0 = 4 * g.gt;
+    // s[0] = sigma, s[j] the partial dot of column COL + j
+    float s[L];
+#pragma unroll
+    for (int j = 0; j < L; ++j) s[j] = 0.0f;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float v = e0 + r > COL ? x[COL][r] : 0.0f;
+      s[0] += v * v;
+#pragma unroll
+      for (int j = 1; j < L; ++j) s[j] += v * x[COL + j][r];
+    }
+    // the pivot row, read from shared memory where it is used
+    float* wb = rows + (buf * groups + g.grp) * NB;
+    group_sum<L, false>(s, g, red + buf * warps * RS, RS, [&] {
+      if (g.gt == owner) {
+#pragma unroll
+        for (int j = 0; j < L; ++j) wb[j] = x[COL + j][slot];
+      }
+    });
+    const Reflection q = reflection(s[0], wb[0]);
+    float u[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int e = e0 + r;
+      u[r] = e > COL ? x[COL][r] : (e == COL ? q.head : 0.0f);
+    }
+#pragma unroll
+    for (int j = 1; j < L; ++j) {
+      const float k = __fmul_rn(q.coef, q.head * wb[j] + s[j]);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        x[COL + j][r] = reflect_value<M>(x[COL + j][r], k, u[r]);
+    }
+    if (g.gt == owner) {
+      rs[COL * 16 + COL] = q.vec_len;
+#pragma unroll
+      for (int j = 1; j < L; ++j) rs[(COL + j) * 16 + COL] = x[COL + j][slot];
+    }
+    qr_unrolled<M, NB, COL + 1>(x, g, red, rows, rs, warps, groups);
   }
 }
 

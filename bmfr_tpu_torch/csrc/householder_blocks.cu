@@ -78,6 +78,7 @@ fit_blocks_regs_kernel(const T* __restrict__ tmp, float* __restrict__ weights,
                        int G, const int* __restrict__ frame, float amp) {
   constexpr int F = NB - 3, RS = 2 * NB;
   extern __shared__ float smem[];
+  // ---- 1. loads ----
   const Group g = make_group(G);
   const int groups = blockDim.x / G, warps = (blockDim.x + 31) / 32;
   float* red = smem;
@@ -99,6 +100,7 @@ fit_blocks_regs_kernel(const T* __restrict__ tmp, float* __restrict__ weights,
     }
   }
 
+  // ---- 2. block min/max and rescale ----
   // block min/max of the scaled features (opencl/bmfr.cl:511-542):
   // mm[c] = max(-x) = -min, mm[F + c] = max
   float mm[2 * F];
@@ -142,12 +144,14 @@ fit_blocks_regs_kernel(const T* __restrict__ tmp, float* __restrict__ weights,
     }
   }
 
+  // ---- 3. reflections ----
   qr_registers<M, NB, HALF>(x, g, red, rows, rs, warps, groups);
   if (HALF) {
     __syncwarp();
   } else {
     __syncthreads();
   }
+  // ---- 4. back substitution ----
   if (active && g.gt < 3) {
     float w[F];
     back_substitute<F>(g.gt, [&](int c, int r) { return rs[c * 16 + r]; }, w);

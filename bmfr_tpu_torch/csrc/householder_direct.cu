@@ -13,7 +13,8 @@
 // the mirror addressing straight into registers, builds their 13 values of
 // the fit there, and holds them through the reflections (52 floats); the
 // block min/max, the fused reduction of each reflection and the hand-out
-// of the pivot row are the only shared traffic (householder.cuh). For the
+// of the pivot row are the only shared traffic (householder.cuh; the
+// reflections unrolled by column, qr_unrolled). For the
 // reconstruction it reads its in-image pixels' normals and positions again
 // (from L2): keeping them in registers instead spilled 24-108 B a thread
 // and was 1.6 % slower on the H100 (PERF.md, Findings).
@@ -44,6 +45,7 @@ fit_direct_kernel(const float* __restrict__ normals,
   __shared__ float rows[2 * NBUF];
   __shared__ float rs[NBUF * 16];
   __shared__ float sw[3 * NF];
+  // ---- 1. loads and features ----
   const Group g = make_group(THREADS);
   const int tid = threadIdx.x;
   const int64_t b = (int64_t)blockIdx.y * gridDim.x + blockIdx.x;
@@ -67,6 +69,7 @@ fit_direct_kernel(const float* __restrict__ normals,
     for (int c = 0; c < NBUF; ++c) x[c][k] = v[c];
   }
 
+  // ---- 2. block min/max and rescale ----
   // block min/max of the stored scaled features: mm[j] = -min, mm[NSC+j] = max
   float mm[2 * NSC];
 #pragma unroll
@@ -96,8 +99,10 @@ fit_direct_kernel(const float* __restrict__ normals,
     for (int c = 0; c < NBUF; ++c) x[c][k] = v[c];
   }
 
-  qr_registers<M, NBUF, false>(x, g, red, rows, rs, WARPS, 1);
+  // ---- 3. reflections ----
+  qr_unrolled<M, NBUF>(x, g, red, rows, rs, WARPS, 1);
   __syncthreads();
+  // ---- 4. back substitution ----
   if (tid < 3) {
     float w[NF];
     back_substitute<NF>(tid, [&](int c, int r) { return rs[c * 16 + r]; }, w);
@@ -118,6 +123,7 @@ fit_direct_kernel(const float* __restrict__ normals,
   }
   if (out == nullptr) return;
   __syncthreads();
+  // ---- 5. reconstruction ----
   if (gy < 0 || gy >= H) return;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {

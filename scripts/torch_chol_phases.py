@@ -1,11 +1,13 @@
 """Where a kernel's time goes: a phase split of kernel B (the Cholesky
-direct fitter, ``bmfr_tpu_torch/csrc/fitter_chol.cu``), of the basis
-kernels B and C (``fitter_chol_basis.cu``,
+direct fitter, ``bmfr_tpu_torch/csrc/fitter_chol.cu``), of kernel C (the
+Householder direct fitter, ``householder_direct.cu``), of kernel D's
+register route (the block fitter, ``householder_blocks.cu``), of the
+basis kernels B and C (``fitter_chol_basis.cu``,
 ``householder_direct_basis.cu``) or of kernel F (K4 + K5 + words 5:8,
 ``filtered_tail.cu``) on one CUDA card.
 
     python3 scripts/torch_chol_phases.py [--root CHECKOUT]
-        [--kernel {B,B-basis,C-basis,F,K}] [--basis NAME ...]
+        [--kernel {B,B-basis,C,C-basis,D,F,K}] [--basis NAME ...]
         [--tile TXxTYxSTAGES ...]
 
 It copies the kernel's source from the checkout into a temporary
@@ -15,16 +17,19 @@ at the end of the kernel (after a closing barrier; in a kernel with early
 returns, by each warp as it leaves), builds that copy alone with nvcc
 (plus the unchanged source with ``-Xptxas -v`` for its registers and
 spills), and runs it through the checkout's own wrapper
-(``fit_reconstruct_cholesky`` or ``fit_reconstruct_direct``) on the
-1280x720 orbit scene's frame 5 for each tmp dtype: kernel B on the
-flagship, the basis kernels on each basis of ``--basis`` (the names of
-``chip_smoke.BASES``; first_order, 10 columns, and 16 columns by
-default). Per case it prints, as warp 0 sees them, the mean cycles of
-each phase per CTA and its share of a CTA's life; when each warp reaches
-each marker, from warp 0's first stamp (a marker inside a branch is
-stamped by the warps that take it); the most CTAs that were resident on
-one SM at once, and the device ms per call of the stamped and the
-unchanged kernel (``torch.profiler``). The stamps cost a few
+(``fit_reconstruct_cholesky``, ``fit_reconstruct_direct`` or
+``fit_blocks_pallas``) on the 1280x720 orbit scene's frame 5 for each tmp
+dtype: kernel B on the flagship, kernel C on the flagship with the
+Householder solver (the graft entry's fit), kernel D on the default
+configuration (block_edge 32, its blocks built by J's plain version
+outside the timed call), the basis kernels on each basis of ``--basis``
+(the names of ``chip_smoke.BASES``; first_order, 10 columns, and 16
+columns by default). Per case it prints, as warp 0 sees them, the mean
+cycles of each phase per CTA and its share of a CTA's life; when each
+warp reaches each marker, from warp 0's first stamp (a marker inside a
+branch is stamped by the warps that take it); the most CTAs that were
+resident on one SM at once, and the device ms per call of the stamped
+and the unchanged kernel (``torch.profiler``). The stamps cost a few
 instructions per CTA; the device times show how much.
 
 Kernel F runs through ``filtered_tail`` on the orbit scene's frame 1 at
@@ -77,8 +82,12 @@ KERNELS = {
           "fit_chol_kernel"),
     "B-basis": ("fitter_chol_basis.cu", "fit_reconstruct_cholesky",
                 "cholesky", "fit_chol_basis_kernel"),
+    "C": ("householder_direct.cu", "fit_reconstruct_direct", "householder",
+          "fit_direct_kernel"),
     "C-basis": ("householder_direct_basis.cu", "fit_reconstruct_direct",
                 "householder", "fit_direct_basis_kernel"),
+    "D": ("householder_blocks.cu", "fit_blocks_pallas", "householder",
+          "fit_blocks_regs_kernel"),
     "F": ("filtered_tail.cu", "filtered_tail", None, "filtered_tail_kernel"),
     "K": ("block_reconstruct.cu", "weighted_sum", None,
           "block_reconstruct_kernel"),
@@ -527,7 +536,8 @@ def main():
     import bmfr_tpu_torch as bt
     import chip_smoke as cs
     from bmfr_tpu_torch.io.fixtures import synthetic_sequence
-    from bmfr_tpu_torch.ops import _lib, fitter_direct
+    from bmfr_tpu_torch.ops import _lib, fitter_direct, fitter_pallas
+    from bmfr_tpu_torch.ops.blockify import build_feature_blocks_reference
 
     assert bt.__file__.startswith(str(root)), bt.__file__
     if not torch.cuda.is_available():
@@ -552,16 +562,30 @@ def main():
         base = bt.BMFRConfig(image_width=cs.WIDTH, image_height=cs.HEIGHT,
                              **cs.SCENE_LIMITS, **bt.FLAGSHIP).replace(
                                  solver=solver)
-        if args.kernel == "B":
+        cases = {}
+        if args.kernel == "D":
+            # the default configuration: the blocks from J's plain version
+            # (the library built here holds D alone), then D on them
+            exact = bt.BMFRConfig(image_width=cs.WIDTH,
+                                  image_height=cs.HEIGHT, **cs.SCENE_LIMITS)
+            fit = getattr(fitter_pallas, wrapper)
+            for m in MODES:
+                cfg = exact.replace(tmp_data_dtype=m)
+                tmp = build_feature_blocks_reference(
+                    cfg, c5.normals, c5.positions, c5.noisy, 5)
+                cases[f"default {m}"] = (
+                    lambda cfg=cfg, tmp=tmp: fit(cfg, tmp, 5),
+                    cfg.buffer_count)
+            bases = {}
+        elif args.kernel in ("B", "C"):
             bases = {"default": {}}
         else:
             for name, fn in cs.CROSS_FEATURES.items():
                 bt.register_feature(name, fn)
             bases = {b: cs.BASES[b]
                      for b in args.basis or ("first_order", "16 columns")}
-        fit = getattr(fitter_direct, wrapper)
-        cases = {}
         for b, kw in bases.items():
+            fit = getattr(fitter_direct, wrapper)
             for m in MODES:
                 cfg = base.replace(tmp_data_dtype=m, **kw)
                 cases[f"{b} {m}"] = (

@@ -124,22 +124,40 @@ def test_basis_schedule_equals_left_looking_bitwise(nf):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+#: the phase script's kernels that return early, and their returns
+#: (kernel C: the blocks entry once the weights are out, a view row
+#: outside the image)
+RETURNS_EARLY = {"C": 2}
+
+
 @pytest.mark.parametrize("kernel,phases", [
     ("B", [1, 2, 3, 4, 5]), ("B-basis", [1, 2, 3, 4, 5]),
-    ("C-basis", [1, 2, 3, 4])])
+    ("C-basis", [1, 2, 3, 4]), ("C", [1, 2, 3, 4, 5]), ("D", [1, 2, 3, 4])])
 def test_phase_script_stamps_every_phase(kernel, phases):
     torch_chol_phases = phases_script()
     source = torch_chol_phases.KERNELS[kernel][0]
     src = (ROOT / "bmfr_tpu_torch" / "csrc" / source).read_text()
     stamped, names = torch_chol_phases.stamped_source(src)
     assert sorted(names) == phases
-    for slot in [*names, torch_chol_phases.SLOTS - 1]:
+    for slot in names:
         assert stamped.count(f"BMFR_STAMP({slot});") == 1
-    # the closing stamp follows a barrier at the kernel's end, which every
-    # thread reaches: the kernel has no early return
-    kernel = stamped[stamped.index("__global__"):stamped.index("int launch(")]
-    assert "__syncthreads();\n  BMFR_STAMP(15);" in kernel
-    assert "return" not in kernel
+    early = torch_chol_phases.EARLY_RETURN.findall  # a lambda's is none
+    head = stamped.index("__global__")
+    body = stamped[head:stamped.index("\n}\n", head)]
+    returns = RETURNS_EARLY.get(kernel, 0)
+    assert body.count("BMFR_STAMP(15);") == returns + 1
+    if returns:
+        # each warp stamps the end as it leaves, at each return and at the
+        # kernel's end, with no closing barrier
+        assert body.count("{ BMFR_STAMP(15); return; }") == returns
+        assert len(early(body)) == returns
+        assert body.rstrip().endswith("\n  BMFR_STAMP(15);")
+        assert "__syncthreads();\n  BMFR_STAMP(15);" not in body
+    else:
+        # the closing stamp follows a barrier at the kernel's end, which
+        # every thread reaches: the kernel has no early return
+        assert "__syncthreads();\n  BMFR_STAMP(15);" in body
+        assert early(body) == []
     # the stamps' prelude follows the source's last header
     assert stamped.index("bmfr_phase_clock[") > stamped.rindex('#include "')
 

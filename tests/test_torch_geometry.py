@@ -1,5 +1,6 @@
-"""Kernel D's launch geometry, the kernels' noise arguments, and the
-entry points' device default (the card), on the CPU."""
+"""Kernel D's launch geometry, the kernels' noise arguments, the
+entry points' device default (the card) and the build's list of
+sources, on the CPU."""
 
 import inspect
 
@@ -96,3 +97,15 @@ def test_kernel_noise_formula_matches_feature_noise(frame, block_edge):
         want = kernel_noise(frame, 10, bp, 13, 0.37)
     got = rng.feature_noise(frame, 10, bp, 13, 0.37).numpy()
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_build_compiles_and_digests_every_kernel_source():
+    """Every ``csrc/*.cu`` is compiled into the library and every
+    ``csrc/*.cuh`` counts in its digest, so an edited header rebuilds
+    it."""
+    from bmfr_tpu_torch.ops import _lib
+
+    assert sorted(_lib.SOURCES) == sorted(
+        p.name for p in _lib.CSRC.glob("*.cu"))
+    assert sorted(_lib.HEADERS) == sorted(
+        p.name for p in _lib.CSRC.glob("*.cuh"))

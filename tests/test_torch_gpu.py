@@ -232,17 +232,21 @@ def test_block_fitter_kernel_matches_plain(cuda, dtype, block_edge):
     torch.testing.assert_close(w, w_ref, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("block_edge", [16, 64])
+@pytest.mark.parametrize("block_edge", [16, 64, 8, 32])
 @pytest.mark.parametrize("basis", [
     dict(features_not_scaled=("const",), features_scaled=()),
     dict(features_scaled=("world_position_x",)),
     dict(features_not_scaled=("const", "normal_x", "normal_x", "normal_y",
                               "normal_y", "normal_z", "normal_z")),
-], ids=["4-columns", "8-columns", "16-columns"])
+    dict(features_not_scaled=("const", "normal_x", "normal_y", "normal_z"),
+         features_scaled=()),
+], ids=["4-columns", "8-columns", "16-columns", "7-columns"])
 def test_block_fitter_kernel_custom_basis(cuda, basis, block_edge):
-    """Kernel D on custom bases of 4, 8 and 16 columns (16, the most it
-    takes, keeps two colour columns in registers at block_edge 64). The
-    16-column basis repeats features, so noise_amount 0.5 conditions it."""
+    """Kernel D on custom bases of 4, 7, 8 and 16 columns (16, the most it
+    takes, keeps two colour columns in registers at block_edge 64), both
+    routes: registers at block_edge 8 (half a warp a block), 16 and 32,
+    shared memory at 64. The 16-column basis repeats features, so
+    noise_amount 0.5 conditions it."""
     cfg = scene_cfg(120, 200).replace(fitter_impl="auto",
                                       solver="householder", noise_amount=0.5,
                                       block_edge=block_edge, **basis)
@@ -287,12 +291,14 @@ def test_kernels_hash_the_noise_as_feature_noise(cuda, kernel, frame):
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("H,W", SHAPES[:2])
+@pytest.mark.parametrize("H,W", SHAPES[:2] + [(720, 1280)])
 @pytest.mark.parametrize("frame", [0, 5, 13])
-@pytest.mark.parametrize("dtype", ["float32", "float16"])
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
 def test_direct_householder_kernel_matches_plain(cuda, H, W, frame, dtype):
-    """Kernel C through both entries: the reconstruction to kernel B's
-    pin (5e-3), the mins/maxs to 1e-6."""
+    """Kernel C through both entries, in each storage mode, also at
+    1280x720: the reconstruction to kernel B's pin (5e-3), the
+    mins/maxs to 1e-6; f16 and bf16 at 1280x720 as
+    test_basis_kernels_match_plain holds reduced precision."""
     cfg = scene_cfg(H, W).replace(solver="householder", tmp_data_dtype=dtype)
     inputs, _, _ = scene(H, W, cuda, frames=1)
     planes = (inputs.normals[0], inputs.positions[0], inputs.noisy[0])
@@ -304,12 +310,26 @@ def test_direct_householder_kernel_matches_plain(cuda, H, W, frame, dtype):
     n0 = fitter_direct.fit_blocks_direct.launches
     w, mm = fitter_direct.fit_blocks_direct(cfg, *planes, frame)
     assert fitter_direct.fit_blocks_direct.launches == n0 + 1
-    _, mm_ref = fitter_direct.fit_blocks_direct_reference(cfg, *planes,
-                                                          frame)
+    w_ref, mm_ref = fitter_direct.fit_blocks_direct_reference(cfg, *planes,
+                                                              frame)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=5e-3, atol=5e-3)
     torch.testing.assert_close(mm, mm_ref, rtol=1e-6, atol=1e-6)
     assert bool(torch.isfinite(w).all())
+    if dtype == "float32" or (H, W) != (720, 1280):
+        torch.testing.assert_close(got, want, rtol=5e-3, atol=5e-3)
+        return
+    # f16/bf16 at 1280x720: single weights of ill-conditioned blocks move
+    # with the summation order alone (on f16, 32-79 of the 2.8 M values of
+    # one frame's image, all in one row of blocks, lie past 5e-3 of the
+    # plain version's), so the weights are held no less exact than the
+    # plain version's against the f64 least-squares weights of the same
+    # stored system, and the image to 5e-3 on all but 1e-3 of its values
+    exact = stored_lstsq(cfg, planes, frame)
+    d_got = float((w.double() - exact).norm() / exact.norm())
+    d_ref = float((w_ref.double() - exact).norm() / exact.norm())
+    assert d_got <= 2 ** 0.5 * d_ref, (d_got, d_ref)
+    off = ((got - want).abs() > 5e-3 + 5e-3 * want.abs()).float()
+    assert float(off.mean()) <= 1e-3, float(off.mean())
 
 
 def saturated_field(H, W, dev):
