@@ -82,8 +82,9 @@ import torch
 from .config import BMFRConfig, check_supported
 from .fidelity import device_name
 from .io.fixtures import synthetic_sequence
-from .pipeline.denoise import (FrameInputs, denoise_frame, denoise_sequence,
-                               frame_inputs_from_numpy, zero_state)
+from .pipeline.denoise import (FrameInputs, PreviousCameras, denoise_sequence,
+                               frame_inputs_from_numpy, step_frames,
+                               zero_state)
 from .ops._lib import tally_launches
 from .pipeline.graph import COUNTED, compiled_step
 from .profile_stages import checked_trace, eager_sequence
@@ -176,28 +177,27 @@ def expected_launches(cfg, frames):
 
 def steady_ms_per_frame(cfg, inputs, cams, offs):
     """Device ms per frame of frames 1..T-1 of one more run on the card:
-    frame 0 eagerly, then CUDA events around the replays of the compiled
-    step that :func:`denoise_sequence` replays, each result copied out as
-    it copies it."""
+    frame 0 eagerly, then CUDA events around the replays, the frame loop
+    and the compiled step that :func:`denoise_sequence` runs
+    (:func:`~bmfr_tpu_torch.pipeline.denoise.step_frames`), each result
+    copied out as it copies it."""
     dev = inputs.noisy.device
     T = inputs.noisy.shape[0]
-    compiled = compiled_step(cfg, dev)
-
-    def frame(t):
-        return FrameInputs(*(x[t] for x in inputs))
-
+    step = compiled_step(cfg, dev)
     results = torch.empty((T, 3, cfg.image_height, cfg.image_width),
                           dtype=torch.float32, device=dev)
-    state, outputs = denoise_frame(cfg, zero_state(cfg, dev), frame(0),
-                                   cams[0], offs[0], 0)
-    results[0] = outputs["result"]
+
+    def frames(t0, t1, state, lag):
+        (state,) = step_frames(
+            step, [state], FrameInputs(*(x[None, t0:t1] for x in inputs)),
+            [lag], offs[None, t0:t1], t0, {"result": results[None, t0:t1]})
+        return state
+
+    state = frames(0, 1, zero_state(cfg, dev), PreviousCameras(cams))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for t in range(1, T):
-        state, outputs = compiled.run(state, frame(t), cams[t - 1], offs[t],
-                                      t)
-        results[t] = outputs["result"]
+    frames(1, T, state, PreviousCameras(cams[1:], cams[0]))
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (T - 1)

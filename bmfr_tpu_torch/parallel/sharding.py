@@ -10,12 +10,13 @@ result gathers it.
 Here the mesh is an ordered tuple of devices (:func:`make_scene_mesh`),
 and scene ``s`` of ``S`` runs on ``mesh[s // (S // n)]``: contiguous
 shards, ``P("scenes")``. A card's scenes advance frame by frame through
-one compiled step (:meth:`~bmfr_tpu_torch.pipeline.graph.CompiledStep.
-run_scenes`): frame 0 eagerly, as :func:`~bmfr_tpu_torch.pipeline.
-denoise.denoise_sequence` runs it, then one CUDA graph per frame that
-holds the card's per-scene steps back to back, each scene with its own
-static buffers and carry (the counterpart of the ``vmap``). On the CPU
-the same loop runs eagerly with the plain versions. The same kernels run
+:func:`~bmfr_tpu_torch.pipeline.denoise.step_frames`, the loop of
+:func:`~bmfr_tpu_torch.pipeline.denoise.denoise_sequence`, and one step
+object (:meth:`~bmfr_tpu_torch.pipeline.graph.CompiledStep.run_scenes`):
+frame 0 eagerly, then one CUDA graph per frame that holds the card's
+per-scene steps back to back, each scene with its own static buffers and
+carry (the counterpart of the ``vmap``). On the CPU every frame runs
+eagerly. The same kernels run
 on the same inputs in the same order as the per-scene
 ``denoise_sequence``, so the result equals it bit for bit (JAX holds its
 two programs to 1e-5 only because they fuse differently).
@@ -38,7 +39,8 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from ..config import check_supported
-from ..pipeline.denoise import FrameInputs, denoise_frame, zero_state
+from ..pipeline.denoise import (FrameInputs, PreviousCameras, step_frames,
+                                zero_state)
 from ..pipeline.graph import CompiledStep
 from ..pipeline.streaming import on_device, resolve_device
 
@@ -67,8 +69,7 @@ class _SceneRunner:
     def __init__(self, cfg, mesh):
         self.cfg = check_supported(cfg)
         self.mesh = make_scene_mesh(mesh)
-        self.steps = [CompiledStep(cfg) if d.type == "cuda" else None
-                      for d in self.mesh]
+        self.steps = [CompiledStep(cfg) for _ in self.mesh]
 
     def _check(self, inputs, camera_matrices, pixel_offsets):
         H, W = self.cfg.image_height, self.cfg.image_width
@@ -91,28 +92,18 @@ class _SceneRunner:
     def _shard(self, i, per, inputs, cams, offs):
         """Scenes ``i * per ..`` on ``mesh[i]``, frame by frame; returns
         their results ``[per, T, 3, H, W]`` there."""
-        dev, step = self.mesh[i], self.steps[i]
-        cfg = self.cfg
-        H, W = cfg.image_height, cfg.image_width
+        dev, cfg = self.mesh[i], self.cfg
         sl = slice(i * per, (i + 1) * per)
         with on_device(dev):
             xs = FrameInputs(*(x[sl].to(dev) for x in inputs))
             cams, offs = cams[sl].to(dev), offs[sl].to(dev)
-            T = xs.noisy.shape[1]
-            results = torch.empty((per, T, 3, H, W), dtype=torch.float32,
-                                  device=dev)
-            states = [zero_state(cfg, dev) for _ in range(per)]
-            for t in range(T):
-                calls = [(states[s], FrameInputs(*(x[s, t] for x in xs)),
-                          cams[s, max(t - 1, 0)], offs[s, t], t)
-                         for s in range(per)]
-                if t > 0 and step is not None:
-                    outs = step.run_scenes(calls)
-                else:
-                    outs = [denoise_frame(cfg, *c) for c in calls]
-                for s, (state, out) in enumerate(outs):
-                    states[s] = state
-                    results[s, t] = out["result"]
+            results = torch.empty((per, xs.noisy.shape[1], 3,
+                                   cfg.image_height, cfg.image_width),
+                                  dtype=torch.float32, device=dev)
+            step_frames(self.steps[i],
+                        [zero_state(cfg, dev) for _ in range(per)], xs,
+                        [PreviousCameras(c) for c in cams], offs, 0,
+                        {"result": results})
         return results
 
     def __call__(self, inputs, camera_matrices, pixel_offsets):

@@ -42,12 +42,14 @@ functions they replace.
 Frame 0 has no history: no warp or gather runs and the planes are zero
 (JAX's ``history="never"``). The reference's one-frame matrix lag (frame
 N is reprojected with ``camera_matrices[N-1]``, opencl/bmfr.cpp:440-444)
-is kept in :func:`denoise_sequence`.
+is :class:`PreviousCameras`.
 
-:func:`denoise_frame` is the eager step, as JAX's un-jitted one is;
-:func:`make_denoise_frame` and :func:`denoise_sequence` replay the
-compiled step of :mod:`~bmfr_tpu_torch.pipeline.graph` for every frame
-with history on a card.
+:func:`denoise_frame` is the eager step, as JAX's un-jitted one is.
+:func:`make_denoise_frame`'s step and :func:`step_frames`, the frame
+loop of :func:`denoise_sequence`, of the stream's chunk runner and of the
+scene runner, hand every frame to the step object of
+:mod:`~bmfr_tpu_torch.pipeline.graph`, which replays its compiled step
+for every frame with history on a card.
 """
 
 from __future__ import annotations
@@ -287,15 +289,15 @@ def make_denoise_frame(cfg, *, plain=False, donate=True):
     counterpart of the JAX package's jitted step
     (``make_denoise_frame(cfg, donate=True)``).
 
-    On a card, every frame with history runs as the compiled step
-    (:class:`~bmfr_tpu_torch.pipeline.graph.CompiledStep`): the steady
-    step captured once as a CUDA graph and replayed, reading the frame
-    from the card. Frame 0, the CPU and ``plain=True`` run
-    :func:`denoise_frame` eagerly. ``frame``/``history`` as
+    Each frame goes to one step object (:class:`~bmfr_tpu_torch.pipeline.
+    graph.CompiledStep`), which decides: on a card every frame with
+    history replays the steady step captured once as a CUDA graph,
+    reading the frame from the card; frame 0, the CPU and ``plain=True``
+    run :func:`denoise_frame` eagerly. ``frame``/``history`` as
     :func:`denoise_frame` takes them. ``result`` is the caller's own
     tensor. Each call is a :func:`~bmfr_tpu_torch.profiling.span`
     ``entry.step`` (given ``frame`` when it is a host int) around
-    ``entry.clone`` (the result's copy) or ``entry.eager``.
+    ``entry.clone`` (a replay's result copied) or ``entry.eager``.
 
     ``donate=True``: the step owns the state it returns and updates it in
     place on the next call, the counterpart of JAX's donated carry and
@@ -307,29 +309,63 @@ def make_denoise_frame(cfg, *, plain=False, donate=True):
     """
     from .graph import CompiledStep
 
-    check_supported(cfg)
-    compiled = CompiledStep(cfg, donate=donate)
+    compiled = CompiledStep(cfg, donate=donate, plain=plain)
 
     def step(state, inputs, prev_cam, pixel_offset, frame, history=None):
         with span("entry.step", frame if isinstance(frame, int) else None):
-            eager = (plain or inputs.noisy.device.type != "cuda"
-                     or not has_history(frame, history))
-            if not eager:
-                state, outputs = compiled.run(state, inputs, prev_cam,
-                                              pixel_offset, frame)
+            state, outputs = compiled.run(state, inputs, prev_cam,
+                                          pixel_offset, frame, history)
+            result = outputs["result"]
+            if compiled.replayed:
                 with span("entry.clone"):
-                    result = outputs["result"].clone()
+                    result = result.clone()
                     count("copies")
-                return state, result
-            with span("entry.eager"):
-                if not donate and isinstance(state, PackedState):
-                    state = PackedState(state.src8.clone())
-                state, outputs = denoise_frame(cfg, state, inputs, prev_cam,
-                                               pixel_offset, frame,
-                                               plain=plain, history=history)
-            return state, outputs["result"]
+            return state, result
 
     return step
+
+
+class PreviousCameras:
+    """The camera matrix each frame is reprojected with: the reference's
+    one-frame lag, frame N with the matrix of frame N-1
+    (opencl/bmfr.cpp:440-444), and frame 0 with its own. ``cams``: the
+    matrices of frames ``t0, t0+1, ...``; ``prev``: frame ``t0-1``'s
+    (None where ``t0`` is frame 0). ``[i]`` is the matrix frame ``t0+i``
+    reads, a view of ``cams`` or ``prev``."""
+
+    __slots__ = ("cams", "prev")
+
+    def __init__(self, cams, prev=None):
+        self.cams = cams
+        self.prev = cams[0] if prev is None else prev
+
+    def __getitem__(self, i):
+        return self.cams[i - 1] if i else self.prev
+
+
+def step_frames(step, states, inputs, cams, offs, t0, out):
+    """Step S scenes over frames ``t0 .. t0+n-1`` through ``step`` (a
+    :class:`~bmfr_tpu_torch.pipeline.graph.CompiledStep`, which decides
+    which frames replay): the frame loop of :func:`denoise_sequence`, of
+    the stream's chunk runner and of the scene runner.
+
+    ``states``: a list of the S scenes' states, each replaced in place
+    by the next (so a state the caller does not hold is freed once
+    stepped); ``inputs``: :class:`FrameInputs` of ``[S, n, 3, H, W]``;
+    ``cams[s][i]``: the matrix scene ``s``'s frame ``t0+i`` is
+    reprojected with (a :class:`PreviousCameras`); ``offs``: f32 ``[S,
+    n, 2]``; ``out``: ``{output name: [S, n, ...] tensor}``, into which
+    each scene-frame's output of that name is copied. Returns ``states``
+    after the last frame."""
+    S = len(states)
+    for i in range(inputs.noisy.shape[1]):
+        calls = [(states[s], FrameInputs(*(x[s, i] for x in inputs)),
+                  cams[s][i], offs[s, i], t0 + i) for s in range(S)]
+        for s, (state, outputs) in enumerate(step.run_scenes(calls)):
+            states[s] = state
+            for name, dst in out.items():
+                dst[s, i] = outputs[name]
+    return states
 
 
 def denoise_sequence(cfg, inputs: FrameInputs, camera_matrices,
@@ -347,44 +383,31 @@ def denoise_sequence(cfg, inputs: FrameInputs, camera_matrices,
     all-zero state of :func:`zero_state`); the sequence starts at frame
     0, which reads no history, as the JAX one does.
 
-    As JAX hoists frame 0 out of its ``lax.scan``, frame 0 runs eagerly
-    and, on a card, frames 1.. replay the compiled step of ``cfg``
-    (:func:`~bmfr_tpu_torch.pipeline.graph.compiled_step`, captured at
-    the first call and kept for later calls on the same card from the
-    same thread); on the CPU and with ``plain=True`` every frame runs
-    eagerly.
+    The frames go through :func:`step_frames` and the step object of
+    ``cfg`` (:func:`~bmfr_tpu_torch.pipeline.graph.compiled_step`,
+    captured at the first call and kept for later calls on the same card
+    from the same thread): as JAX hoists frame 0 out of its ``lax.scan``,
+    frame 0 runs eagerly and, on a card, frames 1.. replay the compiled
+    step; on the CPU and with ``plain=True`` every frame runs eagerly.
     """
-    from .graph import compiled_step
+    from .graph import CompiledStep, compiled_step
 
-    check_supported(cfg)
     T = inputs.noisy.shape[0]
-    H, W = cfg.image_height, cfg.image_width
     dev = inputs.noisy.device
-    state = (zero_state(cfg, dev) if initial_state is None
-             else initial_state)
-    compiled = (None if plain or dev.type != "cuda"
-                else compiled_step(cfg, dev))
-
-    results = torch.empty((T, 3, H, W), dtype=torch.float32, device=dev)
-    tones = None if lite_outputs else torch.empty_like(results)
-    stats = torch.zeros((T, 6), dtype=torch.int32)
-    for t in range(T):
-        frame_in = FrameInputs(inputs.normals[t], inputs.positions[t],
-                               inputs.noisy[t], inputs.albedo[t])
-        args = (state, frame_in, camera_matrices[max(t - 1, 0)],
-                pixel_offsets[t], t)
-        if t > 0 and compiled is not None:
-            state, outputs = compiled.run(*args)
-        else:
-            state, outputs = denoise_frame(cfg, *args, plain=plain)
-        results[t] = outputs["result"]
-        if tones is not None:
-            tones[t] = outputs["tone"]
-        stats[t] = outputs["warp_stats"]
-
-    ys = (results,) if lite_outputs else (results, tones)
+    step = (CompiledStep(cfg, plain=True) if plain
+            else compiled_step(cfg, dev))
+    out = {"result": torch.empty((T, 3, cfg.image_height, cfg.image_width),
+                                 dtype=torch.float32, device=dev)}
+    if not lite_outputs:
+        out["tone"] = torch.empty_like(out["result"])
     if return_stats:
-        ys = ys + (stats,)
+        out["warp_stats"] = torch.zeros((T, 6), dtype=torch.int32)
+    step_frames(step, [zero_state(cfg, dev) if initial_state is None
+                       else initial_state],
+                FrameInputs(*(x[None] for x in inputs)),
+                [PreviousCameras(camera_matrices)], pixel_offsets[None], 0,
+                {name: y[None] for name, y in out.items()})
+    ys = tuple(out.values())
     return ys if len(ys) > 1 else ys[0]
 
 

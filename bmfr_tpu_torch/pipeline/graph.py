@@ -1,6 +1,14 @@
 """The compiled step: the steady per-frame step captured once as a CUDA
 graph and replayed for every later frame.
 
+- Which frames replay: :class:`CompiledStep` alone decides, for every
+  driver (``make_denoise_frame``'s step and :func:`~bmfr_tpu_torch.
+  pipeline.denoise.step_frames`, the loop of ``denoise_sequence``, the
+  stream's chunks and the scene runner). A frame with history on a card
+  replays the graph; a frame without history, a frame on the CPU and a
+  step built ``plain`` run :func:`~bmfr_tpu_torch.pipeline.denoise.
+  denoise_frame` eagerly, inside the span ``entry.eager``.
+
 The counterpart of the JAX package's compiled programs: the jitted step
 with its donated carry (``bmfr_tpu/pipeline/denoise.py:297-313``) and the
 ``lax.scan`` body of ``denoise_sequence`` and of the stream's chunk
@@ -26,9 +34,9 @@ them.
   planes there, after the warp read them (eagerly, without ``into``, the
   next state is this frame's own tensors). The graph copies nothing into
   the carry; a state from elsewhere is copied in once, before a replay.
-- Capture: the first call of a (state type, card, number of scenes)
-  runs its frame eagerly on the static buffers (which also loads the
-  kernel library and makes every one-time setting), then captures the
+- Capture: the first replayed call of a (state type, card, number of
+  scenes) runs its frame eagerly on the static buffers (which also loads
+  the kernel library and makes every one-time setting), then captures the
   same step on a stream of its own, keeps the graph beside its instance
   and finds, once, the kernels' argument words that hold a placeholder's
   address (:class:`~bmfr_tpu_torch.pipeline.bind.NodeBinding`). A
@@ -70,6 +78,7 @@ from ..ops.blockify import build_feature_blocks
 from ..ops.fitter_direct import (fit_blocks_direct, fit_reconstruct_cholesky,
                                  fit_reconstruct_direct)
 from ..ops.fitter_pallas import fit_blocks_pallas
+from ..ops.frame import has_history
 from ..ops.reproject import noisy_tail, reproject_coords
 from ..ops.tail import filtered_tail
 from ..ops.warp import warp_rows
@@ -267,42 +276,75 @@ class _Graph:
 
 
 class CompiledStep:
-    """The steady step of ``cfg`` (frames with history) as a replayed CUDA
-    graph, one per state type, card and number of scenes, captured at its
-    first call.
+    """The per-frame step of ``cfg``: a frame with history on a card
+    replays the steady step as a CUDA graph, one per state type, card and
+    number of scenes, captured at its first replayed call; every other
+    frame runs :func:`~bmfr_tpu_torch.pipeline.denoise.denoise_frame`
+    eagerly (:meth:`replays` is the rule).
 
-    ``run(state, inputs, prev_cam, pixel_offset, frame) -> (state,
-    outputs)`` takes what :func:`~bmfr_tpu_torch.pipeline.denoise.
-    denoise_frame` takes (``frame`` a host int or a 0-d int32 tensor on
-    the card) on CUDA tensors; ``outputs`` holds ``result``, ``tone`` and
-    ``warp_stats``, the graph's own buffers (on a ``TemporalState`` the
-    result is the carry's ``result``), which the next call overwrites. ``donate=True``: the returned state is the step's carry,
-    updated in place by the next call (JAX's donated carry);
-    ``donate=False``: a copy of it, and every state the caller holds
-    stays intact. One step object serves one thread at a time.
+    ``run(state, inputs, prev_cam, pixel_offset, frame, history=None) ->
+    (state, outputs)`` takes what :func:`~bmfr_tpu_torch.pipeline.
+    denoise.denoise_frame` takes (``frame`` a host int or a 0-d int32
+    tensor on the inputs' device). A replay's ``outputs`` hold ``result``,
+    ``tone`` and ``warp_stats``, the graph's own buffers (on a
+    ``TemporalState`` the result is the carry's ``result``), which the
+    next call overwrites; an eager frame's are ``denoise_frame``'s.
+    ``replayed``: whether the last call replayed the graph.
 
-    ``run_scenes(calls)`` steps several scenes of one card at once, the
-    counterpart of the JAX package's ``vmap`` over scenes inside its
-    ``lax.scan`` (``bmfr_tpu/parallel/sharding.py:52-58``): ``calls``
-    holds one argument tuple of ``run`` per scene, and one graph runs the
-    scenes' steps back to back, each scene with its own static buffers
-    and carry (a carry serves one scene: a donated state is the carry
-    itself). It returns one ``(state, outputs)`` per scene.
+    ``donate=True``: a replay's state is the step's carry, updated in
+    place by the next call (JAX's donated carry), and an eager frame's
+    packed state is the caller's, overwritten; ``donate=False``: a copy
+    of the carry, and an eager frame's packed state a clone, so every
+    state the caller holds stays intact. An eager ``TemporalState`` step
+    returns the frame's own tensors and writes nothing of the caller's.
+    ``plain=True``: every frame eagerly, on the kernels' plain versions.
+    One step object serves one thread at a time.
+
+    ``run_scenes(calls, history=None)`` steps several scenes of one card
+    at once, the counterpart of the JAX package's ``vmap`` over scenes
+    inside its ``lax.scan`` (``bmfr_tpu/parallel/sharding.py:52-58``):
+    ``calls`` holds one argument tuple ``(state, inputs, prev_cam,
+    pixel_offset, frame)`` per scene, and one graph runs the scenes'
+    steps back to back, each scene with its own static buffers and carry
+    (a carry serves one scene: a donated state is the carry itself). It
+    returns one ``(state, outputs)`` per scene.
     """
 
-    def __init__(self, cfg, donate=True):
+    def __init__(self, cfg, donate=True, plain=False):
         check_supported(cfg)
-        self.cfg, self.donate = cfg, donate
+        self.cfg, self.donate, self.plain = cfg, donate, plain
+        self.replayed = False
         self._graphs = {}
 
-    def run(self, state, inputs, prev_cam, pixel_offset, frame):
+    def run(self, state, inputs, prev_cam, pixel_offset, frame,
+            history=None):
         (out,) = self.run_scenes([(state, inputs, prev_cam, pixel_offset,
-                                   frame)])
+                                   frame)], history)
         return out
 
-    def run_scenes(self, calls):
+    def run_scenes(self, calls, history=None):
+        self.replayed = self.replays(calls, history)
+        if not self.replayed:
+            with span("entry.eager"):
+                return [self._eager(*call, history) for call in calls]
         with span("step.run"):
             return self._graph(calls).step(calls, self.donate)
+
+    def replays(self, calls, history=None):
+        """Whether ``run_scenes(calls, history)`` replays the graph: every
+        scene's frame has history (:func:`~bmfr_tpu_torch.ops.frame.
+        has_history`: a frame without it reads no state, which the
+        captured step always reads) on a card, and the step is not
+        ``plain``."""
+        return not self.plain and all(
+            inputs.noisy.is_cuda and has_history(frame, history)
+            for _, inputs, _, _, frame in calls)
+
+    def _eager(self, state, inputs, prev_cam, pixel_offset, frame, history):
+        if not self.donate and isinstance(state, PackedState):
+            state = PackedState(state.src8.clone())
+        return denoise_frame(self.cfg, state, inputs, prev_cam, pixel_offset,
+                             frame, plain=self.plain, history=history)
 
     def _graph(self, calls):
         """The checked calls' graph (made at the first call of its key)."""
@@ -314,9 +356,6 @@ class CompiledStep:
             if inputs.noisy.device != dev or type(state) is not state_type:
                 raise ValueError("the scenes of one step share their card "
                                  "and their state type")
-        if dev.type != "cuda":
-            raise ValueError(f"the compiled step runs on a card, not {dev} "
-                             "(denoise_frame runs the step eagerly)")
         if state_type is PackedState and self.cfg.warp_mode != "pallas":
             raise ValueError("a PackedState needs warp_mode='pallas'")
         key = (state_type, dev, len(calls))

@@ -10,7 +10,7 @@ Here, on a steady mid-sequence transition of the synthetic orbit scene
   (``--reps`` calls, the card synchronized around each: launch overhead
   included, so the rows do not sum to the frame), plus the full frame,
   eager and compiled (:class:`~bmfr_tpu_torch.pipeline.graph.
-  CompiledStep`, inputs copied in and the graph replayed);
+  CompiledStep`, the graph replayed on the inputs where they lie);
 - ``--trace`` (the counterpart of ``--xplane``) runs ``--reps`` eager
   steady frames under ``torch.profiler`` and gives each stage the device
   time of the kernels launched inside its range (:func:`~bmfr_tpu_torch.
@@ -56,9 +56,9 @@ from .ops.reproject import noisy_tail, reproject_coords
 from .ops.tail import filtered_tail
 from .ops.weighted_sum import weighted_sum
 from .pipeline import denoise
-from .pipeline.denoise import (FrameInputs, PackedState, denoise_frame,
-                               denoise_sequence, frame_inputs_from_numpy,
-                               zero_state)
+from .pipeline.denoise import (FrameInputs, PackedState, PreviousCameras,
+                               denoise_frame, denoise_sequence,
+                               frame_inputs_from_numpy, zero_state)
 from .pipeline.graph import CompiledStep
 from .profiling import (RUN_RANGE, STAGES, ProfilingInfo, device_events,
                         print_report, synchronize, traced_run)
@@ -107,12 +107,12 @@ def steady_setup(cfg, device):
                                   sc["noisy"], sc["albedo"], device)
     cams = torch.from_numpy(sc["camera_matrices"]).to(device)
     offs = torch.from_numpy(sc["pixel_offsets"]).to(device)
-    state = zero_state(cfg, device)
+    state, lag = zero_state(cfg, device), PreviousCameras(cams)
     for t in range(FRAME):
         state, _ = denoise_frame(cfg, state,
-                                 FrameInputs(*(x[t] for x in seq)),
-                                 cams[max(t - 1, 0)], offs[t], t)
-    return (state, FrameInputs(*(x[FRAME] for x in seq)), cams[FRAME - 1],
+                                 FrameInputs(*(x[t] for x in seq)), lag[t],
+                                 offs[t], t)
+    return (state, FrameInputs(*(x[FRAME] for x in seq)), lag[FRAME],
             offs[FRAME])
 
 
@@ -409,11 +409,11 @@ def eager_sequence(cfg, inputs, cams, offs):
     device = inputs.noisy.device
     results = torch.empty((T, 3, cfg.image_height, cfg.image_width),
                           dtype=torch.float32, device=device)
-    state = zero_state(cfg, device)
+    state, lag = zero_state(cfg, device), PreviousCameras(cams)
     for t in range(T):
         state, outputs = denoise_frame(
-            cfg, state, FrameInputs(*(x[t] for x in inputs)),
-            cams[max(t - 1, 0)], offs[t], t)
+            cfg, state, FrameInputs(*(x[t] for x in inputs)), lag[t],
+            offs[t], t)
         results[t] = outputs["result"]
     return results
 

@@ -140,8 +140,9 @@ def launch_range(name):
 
 #: the spans of the per-frame step, by layer (PERF.md §3): the entry,
 #: ``make_denoise_frame``'s step (``entry.step``, the result's copy
-#: ``entry.clone``, the eager frame ``entry.eager``), and the compiled
-#: step (``CompiledStep.run_scenes`` ``step.run``, a slot's ``_Slot.load``
+#: ``entry.clone``), the eager frame ``entry.eager`` (opened by
+#: ``CompiledStep.run_scenes`` for every driver), and the compiled step
+#: (``CompiledStep.run_scenes`` ``step.run``, a slot's ``_Slot.load``
 #: ``step.load``, the graph's launch and the launch counters' advance
 #: ``step.replay``)
 SPANS = ("entry.step", "entry.clone", "entry.eager", "step.run",

@@ -732,6 +732,41 @@ def test_compiled_step_takes_a_tensor_frame(cuda):
     assert torch.equal(torch.stack(got), want)
 
 
+@pytest.mark.parametrize("carry", ["packed", "temporal"])
+def test_step_object_runs_frame_zero_eagerly(cuda, monkeypatch, carry):
+    """Frame 0 handed to the step object on the card (a host int, and a
+    tensor frame with ``history="never"``), before its capture and after
+    it, equals the eager denoise_frame bit for bit and launches no
+    replay; frame 1 replays."""
+    from bmfr_tpu_torch.pipeline.graph import CompiledStep
+
+    H, W = 64, 96
+    cfg = path_cfg("flagship", H, W)
+    inputs, cams, offs = scene(H, W, cuda, frames=2)
+    initial = (bt.PackedState if carry == "packed"
+               else bt.TemporalState).initial
+    args = [(bt.FrameInputs(*(x[t] for x in inputs)), cams[0], offs[t], t)
+            for t in range(2)]
+    want_state, want = bt.denoise_frame(cfg, initial(cfg, cuda), *args[0])
+    replays = []
+    replay = torch.cuda.CUDAGraph.replay
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay",
+                        lambda g: replays.append(g) or replay(g))
+    step = CompiledStep(cfg)
+    zero = torch.zeros((), dtype=torch.int32, device=cuda)
+    for captured in (False, True):
+        for frame, history in ((0, None), (zero, "never")):
+            state, out = step.run(initial(cfg, cuda), *args[0][:3], frame,
+                                  history)
+            assert not step.replayed and replays == []
+            assert torch.equal(out["result"], want["result"])
+            for a, b in zip(state, want_state):
+                assert torch.equal(a, b)
+        assert bool(step.capture_seconds) is captured
+        step.run(state, *args[1])       # frame 1: the capture, no replay
+    assert step.replayed and len(replays) == 1
+
+
 def test_capture_raises_on_a_host_read(cuda):
     """A step that reads the card on the host cannot be captured: the
     capture raises, and nothing runs eagerly in its place."""
